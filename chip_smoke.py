@@ -9,8 +9,10 @@ passes or exits non-zero:
 1. prints the card's name and power limit, builds the kernels from
    ``ray_tpu_torch/csrc`` and prints the build time and ptxas report;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge cases, and times kernel, plain version
-   and (for flash) ``scaled_dot_product_attention`` as a yardstick;
+   main paths' shapes and at edge cases, and times kernel, plain version
+   and (for flash) ``scaled_dot_product_attention``, forward or backward,
+   as a yardstick; the backward kernels also through ``flash_attention``'s
+   autograd (GQA, ragged causal T=100 and T=1023) against the CPU;
 3. runs ``forward`` of ``ModelConfig()`` at B=4, T=2048 (flash launches
    counted from zero), and checks an f32 forward on the card against the
    CPU's plain path;
@@ -19,7 +21,12 @@ passes or exits non-zero:
    launches counted from zero), prints decode tokens/s, and checks that an
    f32 engine on the card (kernel) gives the same greedy tokens as the
    same engine on the CPU (plain version);
-5. prints the kernel table as one JSON line, then the result line.
+5. trains bench.py's 700M configuration (d_model 2048, 12 layers, remat,
+   bf16) at B=8, T=1024 with ``torch.optim.Adam(lr=3e-4)`` for a few steps
+   of ``make_train_step`` on one batch (flash launches counted from zero):
+   the loss must be finite and fall; then checks an f32 ``ModelConfig()``
+   loss and every gradient on the card against the CPU's plain path;
+6. prints the kernel table as one JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -43,6 +50,12 @@ from ray_tpu_torch.llm.engine import GenerationConfig  # noqa: E402
 from ray_tpu_torch.models import transformer as tfm  # noqa: E402
 from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference,
     flash_attention_forward,
     flash_attention_reference,
 )
@@ -181,6 +194,124 @@ def phase_flash():
     return rows[True]  # the forward is causal
 
 
+def bwd_launches():
+    return flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max abs error over the larger of 1 and the reference's max |b|."""
+    return max_err(a, b) / max(1.0, b.float().abs().max().item())
+
+
+# backward tolerances, relative to max(1, max |reference|): f32 sums in
+# another order; bf16 rounds dS and the outputs to bf16 at the plain
+# version's points, so a last-bit f32 difference can flip a rounding (a
+# few bf16 ulps of the largest entry)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def grouped_bwd_inputs(bh, t, d, causal, dtype, seed):
+    g = gen(seed)
+    qg, kg, vg, do = (torch.randn(bh, t, d, generator=g, device=DEV).to(dtype)
+                      for _ in range(4))
+    out, lse = flash_attention_forward(qg, kg, vg, causal)
+    delta = (do.float() * out.float()).sum(-1)[:, None, :]
+    return qg, kg, vg, do, lse, delta
+
+
+def wrapper_bwd_case(name, b, t, h, hkv, d, causal, dtype, seed):
+    """Grads of flash_attention through autograd: the card (kernels)
+    against the same wrapper on the CPU (plain versions)."""
+    g = gen(seed)
+    q = torch.randn(b, t, h, d, generator=g, device=DEV).to(dtype)
+    k = torch.randn(b, t, hkv, d, generator=g, device=DEV).to(dtype)
+    v = torch.randn(b, t, hkv, d, generator=g, device=DEV).to(dtype)
+    do = torch.randn(b, t, h, d, generator=g, device=DEV).to(dtype)
+    grads = []
+    before = bwd_launches()
+    for dev in (DEV, "cpu"):
+        xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        flash_attention(*xs, causal=causal).backward(do.to(dev))
+        grads.append([x.grad.cpu() for x in xs])
+    launched = tuple(a - b for a, b in zip(bwd_launches(), before))
+    errs = [rel_err(a, b) for a, b in zip(*grads)]
+    tol = BWD_TOL[dtype]
+    print(f"flash bwd {name}: dq/dk/dv rel err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
+          f"(tol {tol}, card vs CPU wrapper) launches dq/dkv {launched}")
+    check(all(e <= tol for e in errs), f"flash bwd {name}: {errs} > {tol}")
+    check(launched == (1, 1), f"flash bwd {name}: launches {launched}")
+
+
+def bwd_timing(bh, t, d, seed):
+    """dQ and dK/dV kernels at one causal bf16 shape: error against the
+    plain versions, kernel, plain and SDPA-backward ms, and each bound."""
+    dtype = torch.bfloat16
+    args = grouped_bwd_inputs(bh, t, d, True, dtype, seed)
+    qg, kg, vg, do, lse, delta = args
+    dq = flash_attention_bwd_dq(*args, True)
+    dk, dv = flash_attention_bwd_dkv(*args, True)
+    want = flash_attention_backward_reference(*args, True)
+    errs = [rel_err(a, b) for a, b in zip((dq, dk, dv), want)]
+    check(max(errs) <= BWD_TOL[dtype], f"flash bwd bh={bh} T={t} D={d}: rel err {errs}")
+    e_dq = max_err(dq, want[0])
+    e_dkv = max(max_err(dk, want[1]), max_err(dv, want[2]))
+    # the yardstick: SDPA's backward on the same layout (dq, dk and dv in
+    # one call), from a saved output
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (qg, kg, vg))
+    out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    sdpa = time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do[None],
+                                               retain_graph=True))
+    pairs = bh * t * (t + 1) // 2
+    ins = nbytes(qg, kg, vg, do, lse, delta)
+    rows = {}
+    for name, fn, plain_fn, outs, products, err in (
+        ("dq", flash_attention_bwd_dq, flash_attention_bwd_dq_reference, (dq,), 3, e_dq),
+        ("dkv", flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference, (dk, dv), 4,
+         e_dkv),
+    ):
+        ms = time_ms(lambda: fn(*args, True))
+        plain = time_ms(lambda: plain_fn(*args, True), iters=3, warmup=1)
+        bnd, by = bound_ms(ins + nbytes(*outs), products * 2.0 * d * pairs, dtype)
+        print(f"flash bwd {name} bf16 bh={bh} T={t} D={d} causal: max_abs_err {err:.3e}; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq+dk+dv) "
+              f"{sdpa:.4f} ms, bound {bnd:.4f} ms ({by}), "
+              f"{products * 2.0 * d * pairs / ms / 1e9:.1f} TFLOP/s")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                          library_ms=sdpa)
+    return rows
+
+
+def phase_flash_backward():
+    """The dQ and dK/dV kernels against their plain versions on the grouped
+    layout, through flash_attention's autograd against the CPU, then timed
+    at the two training shapes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for d in (32, 64, 128):
+                args = grouped_bwd_inputs(8, 256, d, causal, dtype, d + int(causal))
+                before = bwd_launches()
+                got = flash_attention_backward(*args, causal)
+                launched = tuple(a - b for a, b in zip(bwd_launches(), before))
+                want = flash_attention_backward_reference(*args, causal)
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                tag = f"{'f32' if dtype == torch.float32 else 'bf16'} causal={causal} hd{d}"
+                print(f"flash bwd kernels {tag} bh=8 T=256: dq/dk/dv rel err "
+                      f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol {BWD_TOL[dtype]}) "
+                      f"launches dq/dkv {launched}")
+                check(all(e <= BWD_TOL[dtype] for e in errs), f"flash bwd {tag}: {errs}")
+                check(launched == (1, 1), f"flash bwd {tag}: launches {launched}")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        wrapper_bwd_case(f"{tag} GQA 8->2 hd64", 2, 256, 8, 2, 64, True, dtype, 31)
+        wrapper_bwd_case(f"{tag} GQA 8->4 hd32 non-causal", 1, 128, 8, 4, 32, False, dtype, 32)
+        wrapper_bwd_case(f"{tag} ragged causal T=100", 1, 100, 4, 2, 64, True, dtype, 33)
+        wrapper_bwd_case(f"{tag} ragged causal T=1023 hd128", 1, 1023, 2, 2, 128, True,
+                         dtype, 34)
+    train = bwd_timing(128, 1024, 128, 35)  # bench.py's train config, B=8 x 16 heads
+    bwd_timing(32, 2048, 64, 36)            # ModelConfig() at B=4, T=2048
+    return train
+
+
 def paged_inputs(b, kh, g, d, n_pages, page, p_max, lengths, dtype, seed, share=False):
     gn = gen(seed)
     q = torch.randn(b, kh, g, d, generator=gn, device=DEV).to(dtype)
@@ -306,6 +437,16 @@ def prompts(cfg, n=8, length=96, seed=4):
     return [rng.integers(1, cfg.vocab_size, size=length).tolist() for _ in range(n)]
 
 
+def kernel_kind(key: str) -> str:
+    k = key.lower()
+    for kind, marks in (("flash", ("flash_",)), ("paged", ("paged_",)),
+                        ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+                        ("optimizer", ("multi_tensor",))):
+        if any(m in k for m in marks):
+            return kind
+    return "other"
+
+
 def device_profile(label: str, fn, steps: int) -> None:
     """Where ``fn``'s time goes: torch.profiler over ``steps`` calls; the
     device busy share is the summed kernel time over the wall time."""
@@ -317,9 +458,11 @@ def device_profile(label: str, fn, steps: int) -> None:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # kernel rows only: an operator's row repeats its kernels' device time
+    # kernel rows only: an operator's row repeats its kernels' device time,
+    # and a user annotation (the optimizer's step) spans them
     rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     if not rows:
         print(f"{label} profile: no device time in the trace (not measured)")
         return
@@ -327,6 +470,11 @@ def device_profile(label: str, fn, steps: int) -> None:
     print(f"{label} profile over {steps} calls: wall {wall_us / steps:.1f} us/call, "
           f"device busy {busy_us / steps:.1f} us/call ({100 * busy_us / wall_us:.1f}%), "
           f"{sum(r[1] for r in rows) // steps} device ops/call")
+    kinds = {}
+    for us, _, key in rows:
+        kinds[kernel_kind(key)] = kinds.get(kernel_kind(key), 0.0) + us
+    print("  by kind: " + ", ".join(f"{k} {us / steps:.1f} us/call"
+                                    for k, us in sorted(kinds.items(), key=lambda x: -x[1])))
     for us, count, key in sorted(rows, reverse=True)[:6]:
         print(f"  {us / steps:9.1f} us/call  x{count // steps:<4d} {key[:90]}")
 
@@ -394,12 +542,101 @@ def phase_serve():
     return launches, tps
 
 
+# ---------------------------------------------------------------------------
+# 5. training
+# ---------------------------------------------------------------------------
+# bench.py's train configuration (the 700M model it trains with optax.adam)
+TRAIN_CFG = dict(vocab_size=32000, d_model=2048, n_layers=12, n_heads=16, n_kv_heads=16,
+                 d_ff=5504, max_seq_len=1024, remat=True)
+
+
+def phase_train(steps: int = 6):
+    cfg = tfm.ModelConfig(**TRAIN_CFG)
+    params = tfm.init_params(cfg, gen(40), DEV)
+    leaves = [x.requires_grad_() for x in tfm.param_leaves(params)]
+    n_params = sum(x.numel() for x in leaves)
+    opt = torch.optim.Adam(leaves, lr=3e-4)  # bf16 params: bf16 moments
+    step = tfm.make_train_step(cfg, opt)
+    b, t = 8, 1024
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen(41), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(params, tokens)]  # first step: allocations, optimizer state
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    flash_attention_forward.launches = 0
+    flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(params, tokens))
+    # the time ends at a readback of a weight the last update wrote, so
+    # every step's backward and optimizer update are inside it
+    float(params["ln_f"].detach().float().sum())
+    dt = time.perf_counter() - t0
+    launches = dict(fwd=flash_attention_forward.launches, dq=flash_attention_bwd_dq.launches,
+                    dkv=flash_attention_bwd_dkv.launches)
+    losses = [x.item() for x in losses]
+    step_ms = dt / steps * 1e3
+    tps = b * (t - 1) * steps / dt  # loss_fn trains on T-1 positions
+    print(f"train bench.py config ({n_params / 1e6:.1f}M params, remat, bf16) B={b} T={t} "
+          f"Adam(3e-4): first step {first_s * 1e3:.1f} ms, then {step_ms:.2f} ms/step "
+          f"over {steps} steps = {tps:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"train losses {['%.4f' % x for x in losses]}; launches over {steps} steps: "
+          f"flash fwd {launches['fwd']}, dq {launches['dq']}, dkv {launches['dkv']}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    layers = cfg.n_layers * steps
+    check(launches == dict(fwd=2 * layers, dq=layers, dkv=layers),
+          f"train launches {launches}, expected fwd {2 * layers}, dq/dkv {layers}")
+    device_profile(f"train step B={b} T={t}", lambda: step(params, tokens), 2)
+    del params, leaves, opt, step
+    torch.cuda.empty_cache()
+    return launches, step_ms, tps
+
+
+def leaf_names(tree, prefix=""):
+    """Names of tfm.param_leaves(tree), in its order."""
+    return [n for k in sorted(tree) for n in (
+        leaf_names(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict) else [prefix + k])]
+
+
+def phase_train_f32() -> None:
+    """f32 ModelConfig(): loss and every gradient on the card (kernels)
+    against the CPU's plain path, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tfm.ModelConfig(dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (1, 257), generator=torch.Generator().manual_seed(42))
+    got = []
+    for dev in (DEV, torch.device("cpu")):
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(43), dev)
+        leaves = [x.requires_grad_() for x in tfm.param_leaves(params)]
+        loss = tfm.loss_fn(params, tok.to(dev), cfg)
+        loss.backward()
+        got.append([loss.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    names = ["loss"] + leaf_names(params)
+    errs = [rel_err(a, b) for a, b in zip(*got)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    # f32 sums in another order over T=256 and 4 layers: 1e-4 of the leaf's
+    # largest entry
+    print(f"train f32 ModelConfig() B=1 T=257 card vs CPU plain path: loss "
+          f"{got[0][0].item():.6f} vs {got[1][0].item():.6f}, worst relative error "
+          f"{errs[worst]:.2e} ({names[worst]}; tol 1e-4) over the loss and "
+          f"{len(errs) - 1} gradient leaves")
+    check(max(errs) <= 1e-4, f"f32 train step card vs CPU: {errs}")
+
+
 def main() -> None:
     phase_card_and_build()
     flash_row = phase_flash()
+    bwd_rows = phase_flash_backward()
     paged_row = phase_paged()
     flash_launches = phase_forward()
     paged_launches, tps = phase_serve()
+    train_launches, step_ms, train_tps = phase_train()
+    phase_train_f32()
     kernels = [
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",
@@ -409,8 +646,16 @@ def main() -> None:
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",
              launches=flash_launches, **flash_row),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="ray_tpu/ops/flash_attention.py:230",
+             launches=train_launches["dq"], **bwd_rows["dq"]),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="ray_tpu/ops/flash_attention.py:247",
+             launches=train_launches["dkv"], **bwd_rows["dkv"]),
     ]
-    print(f"decode tokens/s {tps:.1f}")
+    print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -159,28 +159,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
   if (hf == 0) lse[(size_t)bh * t_len + q_pos] = m + logf(l_safe);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layout of m16n8k16 (PTX ISA): with g = lane / 4, t = lane % 4,
-// A regs hold (row g | g+8, cols 2t..2t+1 | 2t+8..2t+9), B regs (k rows
-// 2t..2t+1 | 2t+8..2t+9, n col g), C regs (rows g | g+8, cols 2t..2t+1).
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q,  // [bh, T, D]

@@ -1,22 +1,25 @@
 """Flagship model: LLaMA-style decoder (single-device path).
 
 Port of ``ray_tpu/models/transformer.py``: ``ModelConfig``,
-``init_params`` and ``forward`` for one device (pp = sp = 1), dense MLP
-only. Parameters are a plain dict of tensors in the JAX package's
-stacked-layer layout (``blocks[name]`` has a leading layer axis), so
-``params_from_jax`` carries the JAX package's weights straight across.
+``init_params``, ``forward``, ``loss_fn`` and ``make_train_step`` for one
+device (pp = sp = 1), dense MLP only. Parameters are a plain dict of
+tensors in the JAX package's stacked-layer layout (``blocks[name]`` has a
+leading layer axis), so ``params_from_jax`` carries the JAX package's
+weights straight across.
 
-On CUDA, attention runs through the port's flash kernel
-(``ops/flash_attention.py``), as ``_block`` does on a TPU; on the CPU it
-uses ``attention_reference``.
+On CUDA, attention runs through the port's flash kernels
+(``ops/flash_attention.py``, forward and backward), as ``_block`` does on a
+TPU; on the CPU it uses ``attention_reference``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
@@ -35,6 +38,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     n_experts: int = 0  # the port has the dense MLP only (see _check_dense)
     dtype: torch.dtype = torch.bfloat16
+    # recompute each block in the backward pass (torch.utils.checkpoint),
+    # as the JAX package's jax.checkpoint over the scanned block
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -113,6 +119,13 @@ def params_to(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     return tree.to(device)
 
 
+def param_leaves(tree: Dict[str, Any]) -> List[torch.Tensor]:
+    """The parameter tensors in sorted-key order (jax.tree.leaves' order),
+    e.g. for a ``torch.optim.Optimizer``."""
+    return [x for k in sorted(tree) for x in
+            (param_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
 def layer(blocks: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
     """One layer's weights out of the stacked ``blocks`` dict."""
     return {k: v[li] for k, v in blocks.items()}
@@ -147,7 +160,48 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> t
     h = params["embed"][tokens].to(cfg.dtype)
     angles = rope_freqs(cfg.head_dim, t, cfg.rope_theta, device=h.device)
     blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        h = _block(cfg, layer(blocks, li), h, angles)
+    # one unbind per weight: its backward stacks the layers' gradients once,
+    # where indexing layer by layer would write a full-size zero gradient
+    # per layer
+    names = sorted(blocks)
+    per_layer = zip(*(blocks[k].unbind(0) for k in names))
+    for weights in per_layer:
+        p = dict(zip(names, weights))
+        if cfg.remat:
+            h = checkpoint(_block, cfg, p, h, angles, use_reentrant=False)
+        else:
+            h = _block(cfg, p, h, angles)
     h = rms_norm(h, params["ln_f"])
     return (h @ params["head"]).float()
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1] (mean
+    negative log-likelihood, log_softmax in f32)."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return nll.mean()
+
+
+def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer
+                    ) -> Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]:
+    """Returns ``train_step(params, tokens) -> loss``. ``params``' leaves are
+    leaf tensors with ``requires_grad``, and ``optimizer`` is built over
+    them (``param_leaves``); the step updates them in place and returns the
+    loss as a detached tensor, without a sync.
+
+    The JAX package's optax optimizers map to torch's as:
+    ``optax.adamw(1e-3)`` -> ``torch.optim.AdamW(lr=1e-3, betas=(0.9, 0.999),
+    eps=1e-8, weight_decay=1e-4)`` (torch's default decay is 1e-2);
+    ``optax.adam(3e-4, mu_dtype=bf16)`` -> ``torch.optim.Adam(lr=3e-4)`` on
+    bf16 parameters, whose moments are then bf16."""
+
+    def train_step(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+        loss = loss_fn(params, tokens, cfg)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return train_step

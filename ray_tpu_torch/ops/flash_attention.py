@@ -1,23 +1,30 @@
-"""Flash attention forward: hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Port of ``ray_tpu/ops/flash_attention.py`` (the forward; the backward
-kernels ``_dq_kernel``/``_dkv_kernel`` come with the training slice).
+Port of ``ray_tpu/ops/flash_attention.py``, forward and backward.
 
 ``flash_attention`` keeps the JAX wrapper's contract:
 
 - GQA is folded into the grouped layout ``[B*KH*G, T, D]``, with the K/V
   repeat outside the autograd boundary (``_FlashGrouped``) so that the
-  backward, when it lands, sums dK/dV over the groups for free;
+  backward sums dK/dV over the groups through autograd;
 - ragged causal self-attention is zero-padded to the kernel's block and
-  sliced back (exact: padded keys sit in every real query's masked future);
+  sliced back (exact: padded keys sit in every real query's masked future,
+  padded query rows get dO = 0, and the pad's gradients are dropped);
 - ragged non-causal input goes to ``attention_reference``, as in the JAX
   package. That is the documented contract, not a fallback for a failed
-  launch: ``flash_attention_forward.launches`` shows which branch ran.
+  launch: the wrappers' ``.launches`` counts show which branch ran.
 
-``flash_attention_forward`` launches ``csrc/flash_attention_fwd.cu`` for
-CUDA tensors (the kernel that replaces the Pallas ``_fwd_kernel``; its
-source note says what bounds it on the H100) and takes
-``flash_attention_reference`` for CPU tensors.
+Kernels (``csrc/``), each replacing one Pallas kernel; their source notes
+say what bounds them on the H100:
+
+- ``flash_attention_forward``: ``flash_attention_fwd.cu`` (``_fwd_kernel``),
+  writes O and the per-row logsumexp;
+- ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``:
+  ``flash_attention_bwd.cu`` (``_dq_kernel`` and ``_dkv_kernel``), the
+  FlashAttention-2 backward, behind ``flash_attention_backward``.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and takes
+its plain version (``*_reference``) for CPU tensors.
 """
 from __future__ import annotations
 
@@ -28,26 +35,57 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .. import _cuda
 from .layers import attention_reference, in_dtype
 
 SOURCE = "flash_attention_fwd.cu"
-# the kernel's Q and K tiles (csrc/flash_attention_fwd.cu kBQ, kBK): T and
+BWD_SOURCE = "flash_attention_bwd.cu"
+# the kernels' Q and K tiles (kBQ, kBK in csrc/flash_attention_*.cu): T and
 # S must be multiples of these
 BLOCK_Q = 64
 BLOCK_K = 64
 _HEAD_DIMS = (32, 64, 128)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _cuda.load(SOURCE).ray_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+def _bind(source: str, name: str, n_ptrs: int):
+    """The C entry point ``name`` of ``source``: n_ptrs pointers, then
+    (bh, t, s, d, causal), scale, dtype code and stream."""
+    fn = getattr(_cuda.load(source), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _bind(SOURCE, "ray_flash_attention_fwd", 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _dq_kernel():
+    return _bind(BWD_SOURCE, "ray_flash_attention_bwd_dq", 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _dkv_kernel():
+    return _bind(BWD_SOURCE, "ray_flash_attention_bwd_dkv", 8)
+
+
+def _scores(qg, kg, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S = (q * scale).K^T in f32 with masked entries at -1e30, q * scale
+    in the input dtype), as every flash kernel forms them."""
+    t, d = qg.shape[1:]
+    qs = qg * in_dtype(1.0 / d**0.5, qg.dtype).to(qg.device)
+    scores = qs.float() @ kg.float().transpose(1, 2)
+    if causal:
+        q_pos = torch.arange(t, device=qg.device)[:, None]
+        k_pos = torch.arange(kg.shape[1], device=qg.device)[None, :]
+        scores = scores.masked_fill(k_pos > q_pos, -1e30)
+    return scores, qs
 
 
 def flash_attention_reference(
@@ -56,14 +94,8 @@ def flash_attention_reference(
     """Plain version of the kernel on the grouped layout: (O [bh, T, D],
     lse [bh, 1, T] f32), with the kernel's rounding points (q * scale in
     the input dtype, P cast to V's dtype before P.V, f32 sums)."""
-    bh, t, d = qg.shape
-    s = kg.shape[1]
-    qs = (qg * in_dtype(1.0 / d**0.5, qg.dtype).to(qg.device)).float()
-    scores = qs @ kg.float().transpose(1, 2)
-    if causal:
-        q_pos = torch.arange(t, device=qg.device)[:, None]
-        k_pos = torch.arange(s, device=qg.device)[None, :]
-        scores = scores.masked_fill(k_pos > q_pos, -1e30)
+    bh, t, _ = qg.shape
+    scores, _ = _scores(qg, kg, causal)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -126,21 +158,145 @@ def flash_attention_forward(
 flash_attention_forward.launches = 0
 
 
+def _recompute_p(qg, kg, lse, causal):
+    """(P = exp(S - lse) in f32, q * scale in the input dtype), as the
+    backward kernels recompute them; masked entries underflow to 0."""
+    scores, qs = _scores(qg, kg, causal)
+    return torch.exp(scores - lse.reshape(*qg.shape[:2], 1)), qs
+
+
+def flash_attention_bwd_dq_reference(qg, kg, vg, do, lse, delta, causal):
+    """Plain version of the dQ kernel (``_dq_kernel``'s rounding points):
+    dO in f32, dP = dO.V^T in f32, dS cast to K's dtype before dS.K, and a
+    final ``* scale``."""
+    bh, t, d = qg.shape
+    p, _ = _recompute_p(qg, kg, lse, causal)
+    dp = do.float() @ vg.float().transpose(1, 2)
+    ds = p * (dp - delta.reshape(bh, t, 1))
+    dq = ds.to(kg.dtype).float() @ kg.float()
+    return (dq * (1.0 / d**0.5)).to(qg.dtype)
+
+
+def flash_attention_bwd_dkv_reference(qg, kg, vg, do, lse, delta, causal):
+    """Plain version of the dK/dV kernel (``_dkv_kernel``'s rounding
+    points): dV = P^T.dO with P and dO in f32, dS cast to Q's dtype before
+    dS^T.(scale * Q); dK takes no second scale."""
+    bh, t, _ = qg.shape
+    p, qs = _recompute_p(qg, kg, lse, causal)
+    do32 = do.float()
+    dv = p.transpose(1, 2) @ do32
+    dp = do32 @ vg.float().transpose(1, 2)
+    ds = p * (dp - delta.reshape(bh, t, 1))
+    dk = ds.to(qs.dtype).float().transpose(1, 2) @ qs.float()
+    return dk.to(kg.dtype), dv.to(vg.dtype)
+
+
+def flash_attention_backward_reference(
+    qg, kg, vg, do, lse, delta, causal
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of both backward kernels on the grouped layout:
+    (dq, dk, dv) given dO [bh, T, D], lse and delta [bh, 1, T] f32."""
+    dk, dv = flash_attention_bwd_dkv_reference(qg, kg, vg, do, lse, delta, causal)
+    return flash_attention_bwd_dq_reference(qg, kg, vg, do, lse, delta, causal), dk, dv
+
+
+def _check_bwd_inputs(qg, kg, vg, do, lse, delta):
+    _check_inputs(qg, kg, vg)
+    if do.shape != qg.shape or do.dtype != qg.dtype or do.device != qg.device:
+        raise ValueError(
+            f"flash_attention_backward: dO {tuple(do.shape)} {do.dtype} must match "
+            f"q {tuple(qg.shape)} {qg.dtype}"
+        )
+    row = (qg.shape[0], 1, qg.shape[1])
+    for name, x in (("lse", lse), ("delta", delta)):
+        if tuple(x.shape) != row or x.dtype != torch.float32 or x.device != qg.device:
+            raise ValueError(f"flash_attention_backward: {name} must be f32 {row}")
+    for x in (do, lse, delta):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("flash_attention_backward: inputs must be contiguous, 16-byte aligned")
+
+
+def _bwd_args(qg, kg, causal):
+    bh, t, d = qg.shape
+    return (bh, t, kg.shape[1], d, int(causal), 1.0 / d**0.5,
+            _cuda.DTYPE_CODES[qg.dtype], _cuda.current_stream())
+
+
+def flash_attention_bwd_dq(qg, kg, vg, do, lse, delta, causal) -> torch.Tensor:
+    """dQ on the grouped layout. CUDA tensors launch the dQ kernel (or
+    raise); CPU tensors take ``flash_attention_bwd_dq_reference``."""
+    if qg.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(qg, kg, vg, do, lse, delta, causal)
+    if qg.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dq: unsupported device {qg.device}")
+    _check_bwd_inputs(qg, kg, vg, do, lse, delta)
+    dq = torch.empty_like(qg)
+    err = _dq_kernel()(
+        _cuda.ptr(qg), _cuda.ptr(kg), _cuda.ptr(vg), _cuda.ptr(do), _cuda.ptr(lse),
+        _cuda.ptr(delta), _cuda.ptr(dq), *_bwd_args(qg, kg, causal),
+    )
+    _cuda.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(qg, kg, vg, do, lse, delta, causal
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) on the grouped layout. CUDA tensors launch the dK/dV kernel
+    (or raise); CPU tensors take ``flash_attention_bwd_dkv_reference``."""
+    if qg.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(qg, kg, vg, do, lse, delta, causal)
+    if qg.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dkv: unsupported device {qg.device}")
+    _check_bwd_inputs(qg, kg, vg, do, lse, delta)
+    dk, dv = torch.empty_like(kg), torch.empty_like(vg)
+    err = _dkv_kernel()(
+        _cuda.ptr(qg), _cuda.ptr(kg), _cuda.ptr(vg), _cuda.ptr(do), _cuda.ptr(lse),
+        _cuda.ptr(delta), _cuda.ptr(dk), _cuda.ptr(dv),
+        *_bwd_args(qg, kg, causal),
+    )
+    _cuda.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(
+    qg, kg, vg, do, lse, delta, causal
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) on the grouped layout through the two backward kernels
+    (CUDA) or their plain versions (CPU); ``flash_attention_bwd_dq`` and
+    ``flash_attention_bwd_dkv`` count the launches."""
+    dk, dv = flash_attention_bwd_dkv(qg, kg, vg, do, lse, delta, causal)
+    return flash_attention_bwd_dq(qg, kg, vg, do, lse, delta, causal), dk, dv
+
+
 class _FlashGrouped(torch.autograd.Function):
-    """Autograd boundary around the grouped forward (``_flash_grouped``'s
+    """Autograd boundary around the grouped kernels (``_flash_grouped``'s
     custom VJP in the JAX package)."""
 
     @staticmethod
     def forward(ctx, qg, kg, vg, causal):
-        out, _ = flash_attention_forward(qg, kg, vg, causal)
+        out, lse = flash_attention_forward(qg, kg, vg, causal)
+        ctx.save_for_backward(qg, kg, vg, out, lse)
+        ctx.causal = causal
         return out
 
     @staticmethod
+    @once_differentiable  # the kernels have no backward of their own
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash attention backward (the dQ and dK/dV kernels of "
-            "ray_tpu/ops/flash_attention.py) comes with the port's training slice"
-        )
+        qg, kg, vg, out, lse = ctx.saved_tensors
+        do = grad_out.contiguous()
+        # delta_i = rowsum(dO * O), the softmax-jacobian term, in f32 and
+        # in lse's [bh, 1, T] layout (plain torch, as in the JAX package)
+        delta = (do.float() * out.float()).sum(dim=-1)[:, None, :]
+        dq, dk, dv = flash_attention_backward(qg, kg, vg, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(
@@ -167,7 +323,7 @@ def flash_attention(
         return attention_reference(q, k, v, causal=causal)
 
     # fold (batch, kv_head, group) into the first axis; the K/V repeat stays
-    # outside the autograd boundary so dK/dV will sum over groups
+    # outside the autograd boundary so dK/dV sum over the groups
     qg = (
         q.reshape(b, t, hkv, groups, d)
         .permute(0, 2, 3, 1, 4)

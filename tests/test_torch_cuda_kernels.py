@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (paged decode, flash forward and backward)
+against their plain versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor ray_tpu, so it runs where only the port's dependencies
@@ -58,6 +59,72 @@ def test_flash_wrapper_branches(cuda):
         torch.cuda.synchronize()
         assert F.flash_attention_forward.launches == before + launches
         assert _max_err(out, attention_reference(q, k, v, causal=causal)) <= 1e-4
+
+
+def _bwd_inputs(cuda, dtype, bh, t, d, causal, seed, s=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qg, do = (torch.randn(bh, t, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    kg, vg = (torch.randn(bh, s or t, d, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    out, lse = F.flash_attention_forward(qg, kg, vg, causal)
+    delta = (do.float() * out.float()).sum(-1)[:, None, :]
+    return qg, kg, vg, do, lse, delta
+
+
+def _rel_err(a, b):
+    return _max_err(a, b) / max(1.0, b.float().abs().max().item())
+
+
+# f32: sums in another order; bf16: the kernels round dS and the outputs to
+# bf16 as the plain version does, so a last-bit f32 difference can flip a
+# rounding: a few bf16 ulps of the largest entry
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,t,s", [(32, 256, 256), (64, 256, 256), (128, 256, 256),
+                                   (64, 128, 320), (128, 320, 128)])
+def test_flash_backward_kernels_match_plain_version(cuda, dtype, causal, d, t, s):
+    """Both kernels against their plain versions; T != S covers keys that
+    no query sees (S > T) and queries past the last key (T > S)."""
+    args = _bwd_inputs(cuda, dtype, 8, t, d, causal, d + 1, s)
+    before = (F.flash_attention_bwd_dq.launches, F.flash_attention_bwd_dkv.launches)
+    got = F.flash_attention_backward(*args, causal)
+    want = F.flash_attention_backward_reference(*args, causal)
+    torch.cuda.synchronize()
+    assert (F.flash_attention_bwd_dq.launches, F.flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_err(g, w) <= BWD_TOL[dtype], name
+
+
+def test_flash_backward_without_queries(cuda):
+    """T = 0 against S = 64 keys: dK and dV are zeros, as on the CPU."""
+    q = torch.zeros(1, 0, 2, 64, device=cuda, requires_grad=True)
+    k, v = (torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True) for _ in range(2))
+    F.flash_attention(q, k, v, causal=False).sum().backward()
+    torch.cuda.synchronize()
+    assert q.grad.shape == q.shape
+    assert torch.count_nonzero(k.grad) == 0 and torch.count_nonzero(v.grad) == 0
+
+
+def test_flash_backward_through_the_wrapper(cuda):
+    """GQA and ragged causal T=100 through flash_attention's autograd on the
+    card (kernels) against the same wrapper on the CPU (plain versions)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(1, 100, 8, 64, generator=g, device=cuda)
+    k = torch.randn(1, 100, 2, 64, generator=g, device=cuda)
+    v = torch.randn(1, 100, 2, 64, generator=g, device=cuda)
+    do = torch.randn(1, 100, 8, 64, generator=g, device=cuda)
+    grads = []
+    for dev in (cuda, "cpu"):
+        xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        F.flash_attention(*xs, causal=True).backward(do.to(dev))
+        grads.append([x.grad.cpu() for x in xs])
+    for a, b in zip(*grads):
+        assert _rel_err(a, b) <= 1e-4
 
 
 def _paged_args(cuda, dtype, b, kh, g, d, n_pages, page, p_max, lengths, seed=0):

@@ -1,10 +1,12 @@
-"""ray_tpu_torch flash attention against the JAX package's Pallas kernel
-(interpret mode on the CPU, as tests/test_flash_attention.py runs it).
+"""ray_tpu_torch flash attention, forward and backward, against the JAX
+package's Pallas kernels (interpret mode on the CPU, as
+tests/test_flash_attention.py runs them).
 
-On the CPU the port's wrapper runs the kernel's plain version with the
-wrapper's own GQA fold, padding and branch logic; the CUDA kernel itself is
-held against the plain version on the card by
+On the CPU the port's wrappers run the kernels' plain versions with the
+wrapper's own GQA fold, padding and branch logic; the CUDA kernels
+themselves are held against the plain versions on the card by
 tests/test_torch_cuda_kernels.py and chip_smoke.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,11 +84,82 @@ def test_bf16_rounding_points():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=3e-2)
 
 
-def test_backward_is_not_ported_yet():
-    q, k, v = (torch.from_numpy(a).requires_grad_() for a in mk_qkv(7, 1, 64, 2, 2, 32))
-    out = T.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+def grads_both(q, k, v, causal, loss):
+    """Grads of loss(out) w.r.t. q, k, v: jax.grad through the Pallas
+    kernels (interpret mode) and torch autograd through the port's wrapper
+    (the backward's plain version on the CPU)."""
+    def f(q, k, v):
+        return loss(J.flash_attention(q, k, v, causal=causal, interpret=True), jnp)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    loss(T.flash_attention(tq, tk, tv, causal=causal), torch).backward()
+    return [np.asarray(w) for w in want], [x.grad.numpy() for x in (tq, tk, tv)]
+
+
+def cos_loss(out, xp):
+    return xp.sum(out * xp.cos(out))  # non-uniform cotangent
+
+
+@pytest.mark.parametrize(
+    "name,shape,causal,loss",
+    [
+        ("causal", (2, 256, 4, 4, 64), True, cos_loss),
+        ("non-causal", (2, 256, 4, 4, 64), False, cos_loss),
+        ("GQA 8->2", (1, 128, 8, 2, 32), True, lambda o, xp: o.sum()),
+        ("ragged causal T=70", (1, 70, 2, 2, 16), True, lambda o, xp: (o**2).sum()),
+    ],
+)
+def test_grads_match_jax_kernel(name, shape, causal, loss):
+    """The cases of tests/test_flash_attention.py's backward tests, at the
+    reference's own tolerance (atol 5e-3): dk/dv sum over GQA groups and
+    the ragged pad's gradients are dropped."""
+    want, got = grads_both(*mk_qkv(8, *shape), causal, loss)
+    for w, g, n in zip(want, got, "qkv"):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=5e-3, err_msg=f"{name}: d{n}")
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 0, 1e-5),
+                                              (torch.bfloat16, 2**-7, 3e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,s", [(128, 128), (128, 256)])
+def test_backward_reference_matches_pallas_bwd(dtype, rtol, atol, causal, t, s):
+    """flash_attention_backward_reference against the Pallas backward
+    (_flash_grouped_bwd, interpret mode) on the grouped layout, given the
+    same dO, O and lse. f32: sums in another order, atol 1e-5. bf16: both
+    round dS to bf16 before dS.K and dS^T.Q, where an f32 difference in
+    the last bit can flip one bf16 rounding (2**-8 relative), and dq/dk/dv
+    (|x| up to ~8 here) are rounded to bf16: two bf16 ulps of the value
+    (rtol 2**-7) plus atol 3e-2. S > T covers the keys no query sees."""
+    rng = np.random.default_rng(9)
+    qg, do = (rng.standard_normal((3, t, 32), dtype=np.float32) for _ in range(2))
+    kg, vg = (rng.standard_normal((3, s, 32), dtype=np.float32) for _ in range(2))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(dtype) for a in (qg, kg, vg, do))
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.dtype(str(dtype)[6:]))
+                       for t in (tq, tk, tv, tdo))
+    out, lse = T.flash_attention_forward(tq, tk, tv, causal)
+    jout, jlse = jnp.asarray(out.float().numpy()).astype(jq.dtype), jnp.asarray(lse.numpy())
+    want = J._flash_grouped_bwd(causal, 128, 128, True, (jq, jk, jv, jout, jlse), jdo)
+    delta = (tdo.float() * out.float()).sum(-1)[:, None, :]
+    got = T.flash_attention_backward_reference(tq, tk, tv, tdo, lse, delta, causal)
+    for w, g, n in zip(want, got, "qkv"):
+        assert g.dtype == dtype and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)),
+                                   rtol=rtol, atol=atol, err_msg=f"d{n}")
+    # the CPU wrapper is the plain version, through both kernel wrappers
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, T.flash_attention_backward(tq, tk, tv, tdo, lse, delta, causal)))
+
+
+def test_backward_input_checks():
+    qg = torch.zeros(2, 128, 32)
+    row = torch.zeros(2, 1, 128)
+    T._check_bwd_inputs(qg, qg, qg, qg, row, row)
+    for do, lse in ((qg.bfloat16(), row), (qg[:, :64], row), (qg, row.double()),
+                    (qg, row[:, :, :64])):
+        with pytest.raises((ValueError, TypeError)):
+            T._check_bwd_inputs(qg, qg, qg, do, lse, row)
 
 
 @pytest.mark.parametrize(

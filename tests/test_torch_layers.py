@@ -96,6 +96,16 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.ops.layers, ray_tpu_torch.ops.flash_attention\n"
         "import ray_tpu_torch.ops.paged_attention, ray_tpu_torch.models.transformer\n"
         "import ray_tpu_torch.llm.engine, ray_tpu_torch.llm.continuous\n"
+        "import torch\n"
+        "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
+        "from ray_tpu_torch.models import transformer as tfm\n"
+        "q = torch.randn(1, 70, 2, 32, requires_grad=True)\n"
+        "flash_attention(q, q.detach(), q.detach()).sum().backward()\n"
+        "cfg = tfm.ModelConfig(vocab_size=32, d_model=32, n_layers=1, n_heads=2,\n"
+        "                      n_kv_heads=1, d_ff=64, dtype=torch.float32, remat=True)\n"
+        "p = tfm.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "opt = torch.optim.AdamW([x.requires_grad_() for x in tfm.param_leaves(p)])\n"
+        "tfm.make_train_step(cfg, opt)(p, torch.randint(0, 32, (1, 9)))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(','.join(bad))\n"
