@@ -11,8 +11,10 @@ passes or exits non-zero:
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at edge cases, and times kernel, plain version
    and (for flash) ``scaled_dot_product_attention``, forward or backward,
-   as a yardstick; the backward kernels also through ``flash_attention``'s
-   autograd (GQA, ragged causal T=100 and T=1023) against the CPU;
+   as a yardstick; the flash forward at the forward cell's and the train
+   cell's shapes and where its key tiles end inside the keys; the backward
+   kernels also through ``flash_attention``'s autograd (GQA, ragged causal
+   T=100 and T=1023) against the CPU;
 3. runs ``forward`` of ``ModelConfig()`` at B=4, T=2048 (flash launches
    counted from zero), and checks an f32 forward on the card against the
    CPU's plain path;
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -130,7 +133,13 @@ def phase_card_and_build() -> None:
     for src in _cuda.SOURCES:
         log = _cuda._library_path(src).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
+            entry = re.search(r"entry function '_Z\w*?\d+((?:flash|paged)_\w*?_kernel)I(\w*?)EEv",
+                              line)
+            if entry:  # the kernel and its template arguments, from the mangled name
+                args = re.sub(r"L[ij](\d+)E", r"\1,", entry.group(2))
+                args = re.sub(r"^f", "float,", args).replace("13__nv_bfloat16", "bf16,")
+                print(f"  ptxas {src}: {entry.group(1)}<{args.rstrip(',')}>")
+            elif "registers" in line or "spill" in line or "arning" in line:
                 print(f"  ptxas {src}: {line.strip()}")
 
 
@@ -168,30 +177,65 @@ def phase_flash():
     flash_case("bf16 ragged causal T=2000", 1, 2000, 8, 4, 64, True, torch.bfloat16, 3e-2, 7)
     flash_case("bf16 entry() shape hd32", 4, 128, 8, 4, 32, True, torch.bfloat16, 3e-2, 8)
 
-    # the forward's shapes: B=4, T=2048, 8 heads over 4 KV heads, hd 64, bf16
-    b, t, hd, bh = 4, 2048, 64, 4 * 8
-    g = gen(11)
-    qg, kg, vg = (torch.randn(bh, t, hd, generator=g, device=DEV).to(torch.bfloat16)
-                  for _ in range(3))
-    rows = {}
-    for causal in (True, False):
+    # the bf16 kernel against its plain version where its 128-key tile ends
+    # inside the keys (T = 192; S = 320, no causal offset when T != S) and
+    # at the head_dims whose tiles are laid out differently (32: 64-byte
+    # swizzle; 128: two 64-column boxes, 64-key tiles)
+    for name, bh, t, s, d, causal in (
+        ("T=192 causal", 4, 192, 192, 64, True),
+        ("T=192 non-causal", 4, 192, 192, 64, False),
+        ("T=128 S=320 non-causal", 4, 128, 320, 64, False),
+        ("T=128 S=320 causal", 4, 128, 320, 64, True),
+        ("hd32 T=192 non-causal", 4, 192, 192, 32, False),
+        ("hd32 T=128 S=320 causal", 4, 128, 320, 32, True),
+        ("hd128 T=192 causal", 4, 192, 192, 128, True),
+        ("hd128 T=128 S=320 non-causal", 4, 128, 320, 128, False),
+    ):
+        g = gen(t + s + d + int(causal))
+        qg = torch.randn(bh, t, d, generator=g, device=DEV).to(torch.bfloat16)
+        kg, vg = (torch.randn(bh, s, d, generator=g, device=DEV).to(torch.bfloat16)
+                  for _ in range(2))
         out, lse = flash_attention_forward(qg, kg, vg, causal)
         ref_out, ref_lse = flash_attention_reference(qg, kg, vg, causal)
         torch.cuda.synchronize()
         e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+        print(f"flash kernel bf16 {name} bh={bh}: out err {e_out:.3e} (atol 3e-2) "
+              f"lse err {e_lse:.3e} (atol 1e-3)")
+        check(e_out <= 3e-2 and e_lse <= 1e-3, f"flash kernel bf16 {name}: {e_out}, {e_lse}")
+
+    # the forward cell's shapes (B=4, T=2048, 8 heads over 4 KV heads, hd 64,
+    # causal and not), then the train cell's (bench.py's config, B=8 x 16
+    # heads, T=1024, hd 128, causal)
+    rows = {}
+    for key, bh, t, hd, causal in (("fwd", 32, 2048, 64, True),
+                                   ("fwd non-causal", 32, 2048, 64, False),
+                                   ("train", 128, 1024, 128, True)):
+        g = gen(11)
+        qg, kg, vg = (torch.randn(bh, t, hd, generator=g, device=DEV).to(torch.bfloat16)
+                      for _ in range(3))
+        out, lse = flash_attention_forward(qg, kg, vg, causal)
+        ref_out, ref_lse = flash_attention_reference(qg, kg, vg, causal)
+        torch.cuda.synchronize()
+        e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+        del ref_out, ref_lse
         ms = time_ms(lambda: flash_attention_forward(qg, kg, vg, causal))
         plain = time_ms(lambda: flash_attention_reference(qg, kg, vg, causal), iters=5)
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qg[None], kg[None], vg[None], is_causal=causal))
         pairs = bh * (t * (t + 1) // 2 if causal else t * t)
-        bnd, by = bound_ms(nbytes(qg, kg, vg, out, lse), 4.0 * hd * pairs, torch.bfloat16)
+        flops = 4.0 * hd * pairs
+        bnd, by = bound_ms(nbytes(qg, kg, vg, out, lse), flops, torch.bfloat16)
         print(f"flash bf16 bh={bh} T={t} D={hd} causal={causal}: out err {e_out:.3e} "
-              f"lse err {e_lse:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"sdpa {sdpa:.4f} ms, bound {bnd:.4f} ms ({by})")
+              f"lse err {e_lse:.3e}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain {plain:.4f} ms, sdpa {sdpa:.4f} ms, bound {bnd:.4f} ms ({by})")
         check(e_out <= 3e-2 and e_lse <= 1e-3, f"flash forward shapes: {e_out}, {e_lse}")
-        rows[causal] = dict(max_abs_err=e_out, ms=ms, plain_ms=plain, bound_ms=bnd,
-                            bound_by=by, library_ms=sdpa)
-    return rows[True]  # the forward is causal
+        rows[key] = dict(max_abs_err=e_out, ms=ms, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_ms=sdpa)
+        del qg, kg, vg, out, lse
+    torch.cuda.empty_cache()
+    # the forward cell is causal; the train cell's shape rides beside it
+    return dict(rows["fwd"], train_shape=dict(shape="bh=128 T=1024 D=128 bf16 causal",
+                                               **rows["train"]))
 
 
 def bwd_launches():

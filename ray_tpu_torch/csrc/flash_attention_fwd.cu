@@ -3,40 +3,53 @@
 // Replaces the Pallas TPU kernel ray_tpu/ops/flash_attention.py
 // _fwd_kernel (launched by _fwd_impl): blockwise causal or non-causal
 // attention over the grouped layout [B*KH*G, T, D] with an online softmax,
-// writing O and the per-row logsumexp [bh, 1, T] (f32) that the backward
-// kernels will read.
+// writing O and the per-row logsumexp [bh, 1, T] (f32, natural log) that
+// the backward kernels read.
 //
-// Bound on the H100: at the serving and training shapes (T = 2048,
-// D = 64) the work is ~4 * T * T * D / 2 flops per (batch, head) against
-// ~4 * T * D bytes, so it is bound by operations, and the tensor cores
-// (989 TFLOP/s bf16) set the floor. Two kernels, one design:
-//   - bf16 (the model's dtype): warp-level tensor-core products
-//     (mma.sync m16n8k16, f32 accumulate). Each of the 4 warps owns 16 Q
-//     rows, keeps its Q fragments, running max/sum and O accumulator in
-//     registers, and turns the S accumulator into the A operand of P.V in
-//     registers (FlashAttention-2's layout trick), so P never touches
-//     shared memory. V is stored transposed in shared memory so that its
-//     B fragments are single 32-bit loads.
-//   - f32 (tests and checks): plain f32 FMAs from shared memory.
-//   - one block per (bh, 64-row Q tile); K/V tiles of 64 rows stream through
-//     shared memory with coalesced 16-byte loads issued before the barrier,
-//     overlapping the previous tile's work; causal blocks stop at the
-//     diagonal, and the heaviest Q tiles are scheduled first;
-//   - the Pallas rounding points: q * scale in the input dtype, P cast to
-//     V's dtype before P.V, f32 accumulation.
-// Not yet done (later work): wgmma and TMA, a cp.async/TMA pipeline of
-// several K/V stages, and warp specialisation.
+// Bound on the H100: ~4 * D flops per (query, visible key) pair against
+// q, k, v and O read or written once. At the forward cell's shape (bh 32,
+// T 2048, D 64, causal) that is operations: 17.2 GFLOP over 989 TFLOP/s
+// bf16 = 0.0174 ms. At the train shape (bh 128, T 1024, D 128, causal) it
+// is bytes: 4 x 33.5 MB over 3.35 TB/s = 0.0402 ms.
+//
+// bf16 (the model's dtype): one warpgroup (128 threads) per 64-row Q tile,
+// built from the Hopper blocks of hopper.cuh:
+//   - K/V tiles (kBK rows: 128 at D 32/64, 64 at D 128) come by TMA into a
+//     ring of swizzled shared-memory stages, each completing on its own
+//     mbarrier; thread 0 refills a stage as soon as all four warps are past
+//     their products on it (a named barrier), so the next tiles' loads run
+//     under this tile's math. No thread spends registers or instructions on
+//     a copy, and there is no per-element V transpose.
+//   - S = (q * scale) . K^T is one wgmma chain with Q and K read straight
+//     from shared memory (K-major descriptors); O += P . V is a wgmma with
+//     P as its register A operand (the S accumulator's layout is the A
+//     fragment's) and V read MN-major (transpose-B) from its row-major
+//     tile. Shared-memory bandwidth no longer paces the tensor cores: each
+//     operand byte is read once per 64-row product, not once per warp.
+//   - the online softmax runs on the accumulator in registers, in base 2
+//     (exp2f of S * log2 e), its max and sum reduced over the quad that
+//     holds a row; lse goes back to natural-log units.
+//   - a box past a head's last key row is zero-filled by TMA (3-D maps
+//     [bh, S, D]), and those keys are masked at -1e30 like the causal
+//     future; causal blocks stop at the diagonal, heaviest Q tiles first.
+// f32 (tests and checks): plain f32 FMAs from shared memory, 64x64 tiles.
+// Both keep the Pallas rounding points: q * scale in the input dtype, P cast
+// to V's dtype before P.V, f32 accumulation.
+// Not yet done (later work): 128-row Q tiles over two consumer warpgroups
+// with a producer warp and setmaxnreg (FlashAttention-3's block), overlap
+// of the softmax with the next Q.K^T inside a warpgroup, persistent blocks.
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace rtt;
 
 namespace {
 
-constexpr int kThreads = 128;  // FMA kernel: two threads per Q row; MMA: 16 rows per warp
+constexpr int kThreads = 128;  // FMA kernel: two threads per Q row; wgmma: one warpgroup
 constexpr int kBQ = 64;
-constexpr int kBK = 64;
+constexpr int kBK = 64;  // FMA kernel's key tile, and the granularity of S
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
@@ -159,118 +172,177 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
   if (hf == 0) lse[(size_t)bh * t_len + q_pos] = m + logf(l_safe);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [bh, T, D]
-    const __nv_bfloat16* __restrict__ k,  // [bh, S, D]
-    const __nv_bfloat16* __restrict__ v,  // [bh, S, D]
-    __nv_bfloat16* __restrict__ o,        // [bh, T, D]
-    float* __restrict__ lse,              // [bh, 1, T]
-    int t_len, int s_len, int causal, float scale) {
-  using bf16 = __nv_bfloat16;
-  constexpr int LDK = D + 8;    // Q/K rows: 16-byte aligned, conflict-free fragments
-  constexpr int LDV = kBK + 8;  // rows of V transposed
-  constexpr int CPR = D / 8;    // 16-byte chunks per row
-  constexpr int CH = kBK * CPR / kThreads;
-  constexpr int QCH = kBQ * CPR / kThreads;
-  constexpr int NT = kBK / 8;   // score column tiles
-  constexpr int DT = D / 8;     // output column tiles
-  constexpr int KS = D / 16;    // k-steps of Q.K^T
-  static_assert(kBQ == 16 * (kThreads / 32), "one 16-row strip per warp");
-  static_assert(D % 16 == 0 && (kBK * CPR) % kThreads == 0, "tile shapes");
+// The bf16 kernel's key-tile rows and K/V ring stages by head_dim (the
+// stages bound shared memory: 2-3 blocks share an SM)
+template <int D> struct WgTiles;
+template <> struct WgTiles<32> { static constexpr int kBK = 128, kStages = 2; };
+template <> struct WgTiles<64> { static constexpr int kBK = 128, kStages = 2; };
+template <> struct WgTiles<128> { static constexpr int kBK = 64, kStages = 2; };
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LDK]
-  bf16* ks = qs + kBQ * LDK;                     // [kBK][LDK]
-  bf16* vt = ks + kBK * LDK;                     // [D][LDV], V transposed
+// Shared-memory plan of the bf16 kernel. Each tile is stored as boxes of
+// kCols columns, box after box; a box row is one swizzle span (kRowBytes).
+template <int D> struct WgLayout {
+  static constexpr int kBK = WgTiles<D>::kBK;
+  static constexpr int kStages = WgTiles<D>::kStages;
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kCols * 2;  // 64 B at D = 32, else 128 B
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kSwizzle = kRowBytes == 128 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;  // one K or V tile
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (kStages + 1);  // + alignment slack
+};
+
+// Descriptor of k-step kk (16 columns) of a K-major [rows, D] tile (Q, K)
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  using L = WgLayout<D>;
+  constexpr int kSteps = L::kCols / 16;  // k-steps per box
+  return hopper::wgmma_desc(tile + (kk / kSteps) * rows * L::kRowBytes + (kk % kSteps) * 32, 16,
+                            8 * L::kRowBytes, L::kSwizzle);
+}
+
+// Descriptor of k-step kk (key rows 16kk..16kk+15) of a V tile read
+// MN-major: N = D runs along the rows, box after box
+template <int D> __device__ __forceinline__ uint64_t v_desc(uint32_t tile, int kk) {
+  using L = WgLayout<D>;
+  return hopper::wgmma_desc(tile + kk * 16 * L::kRowBytes, L::kBK * L::kRowBytes,
+                            8 * L::kRowBytes, L::kSwizzle);
+}
+
+// Key tile kb of K and V into one ring stage, completing on its barrier
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                        uint32_t k_dst, uint32_t v_dst, uint32_t bar, int kb,
+                                        int bh) {
+  using L = WgLayout<D>;
+  hopper::mbar_arrive_expect_tx(bar, 2 * L::kTileBytes);
+#pragma unroll
+  for (int b = 0; b < L::kBoxes; ++b) {
+    const uint32_t off = b * L::kBK * L::kRowBytes;
+    hopper::tma_load_3d(k_dst + off, k_map, bar, b * L::kCols, kb * L::kBK, bh);
+    hopper::tma_load_3d(v_dst + off, v_map, bar, b * L::kCols, kb * L::kBK, bh);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,  // [bh, T, D] bf16, box [kBQ, kCols]
+    const __grid_constant__ CUtensorMap k_map,  // [bh, S, D] bf16, box [kBK, kCols]
+    const __grid_constant__ CUtensorMap v_map,  // [bh, S, D] bf16, box [kBK, kCols]
+    __nv_bfloat16* __restrict__ o,              // [bh, T, D]
+    float* __restrict__ lse,                    // [bh, 1, T]
+    int t_len, int s_len, int causal, float scale) {
+  using namespace hopper;
+  using bf16 = __nv_bfloat16;
+  using L = WgLayout<D>;
+  constexpr int BK = L::kBK, NS = L::kStages;
+  constexpr int NT = BK / 8;  // score column tiles
+  constexpr int DT = D / 8;   // output column tiles
+  constexpr float kLog2e = 1.4426950408889634f;
+  static_assert(kThreads == 128 && kBQ == 64, "one warpgroup, one wgmma row block");
+
+  extern __shared__ unsigned char smem_raw[];
+  // tiles start on 1024 B: the swizzle atom is 8 rows of 128 B
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  bf16* q_tile = reinterpret_cast<bf16*>(smem_raw + (base - raw));
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + L::kQBytes;       // stage st at + st * kTileBytes
+  const uint32_t v_s = k_s + NS * L::kTileBytes;
+  const uint32_t full = base + L::kBarOffset;   // stage st's barrier at + 8 * st
+  const uint32_t q_bar = full + 8 * NS;
 
   const int nq = t_len / kBQ;
   const int bh = blockIdx.x / nq;
   const int qi = nq - 1 - (int)(blockIdx.x % nq);  // heaviest causal tiles first
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const bf16* qb = q + ((size_t)bh * t_len + (size_t)qi * kBQ) * D;
-  const bf16* kbase = k + (size_t)bh * s_len * D;
-  const bf16* vbase = v + (size_t)bh * s_len * D;
-  const float scale_t = round_to<bf16>(scale);
 
-  // Q tile, q * scale rounded to bf16, then this warp's A fragments
-#pragma unroll
-  for (int c = 0; c < QCH; ++c) {
-    const int idx = tid + c * kThreads;
-    const int row = idx / CPR, col = (idx % CPR) * 8;
-    uint4 u = *reinterpret_cast<const uint4*>(qb + row * D + col);
-    bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * scale_t);
-    *reinterpret_cast<uint4*>(qs + row * LDK + col) = u;
+  int n_kb = (s_len + BK - 1) / BK;
+  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / BK + 1);
+
+  // thread 0 owns the barriers and issues every TMA load; ring stage st
+  // holds key tiles kb with kb % NS == st
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) mbar_init(full + 8 * st, 1);
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qf[KS][4];
+  if (tid == 0) {
+    mbar_arrive_expect_tx(q_bar, L::kQBytes);
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    qf[kk][0] = ld32(qs + r0 * LDK + kk * 16 + 2 * t4);
-    qf[kk][1] = ld32(qs + (r0 + 8) * LDK + kk * 16 + 2 * t4);
-    qf[kk][2] = ld32(qs + r0 * LDK + kk * 16 + 8 + 2 * t4);
-    qf[kk][3] = ld32(qs + (r0 + 8) * LDK + kk * 16 + 8 + 2 * t4);
+    for (int b = 0; b < L::kBoxes; ++b)
+      tma_load_3d(q_s + b * kBQ * L::kRowBytes, &q_map, q_bar, b * L::kCols, qi * kBQ, bh);
+    for (int kb = 0; kb < NS && kb < n_kb; ++kb)
+      load_kv<D>(&k_map, &v_map, k_s + kb * L::kTileBytes, v_s + kb * L::kTileBytes,
+                 full + 8 * kb, kb, bh);
   }
-  const int q_pos0 = qi * kBQ + r0, q_pos1 = q_pos0 + 8;
 
-  float acc[DT][4];
+  // q * scale rounded to bf16, in place (elementwise, so the swizzle does
+  // not matter), then fenced so that wgmma reads the scaled tile
+  mbar_wait(q_bar, 0);
+  {
+    const float scale_t = round_to<bf16>(scale);
+    uint4* qv = reinterpret_cast<uint4*>(q_tile);
 #pragma unroll
-  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int i = 0; i < L::kQBytes / 16 / kThreads; ++i) {
+      uint4 u = qv[tid + i * kThreads];
+      bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale_t);
+      qv[tid + i * kThreads] = u;
+    }
+  }
+  fence_proxy_async();
+  named_barrier_sync(1, kThreads);
+
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const int q_pos0 = qi * kBQ + r0, q_pos1 = q_pos0 + 8;
+  float s[BK / 2], acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) s[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's part
 
-  int n_kb = s_len / kBK;
-  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / kBK + 1);
-
   for (int kb = 0; kb < n_kb; ++kb) {
-    uint4 kbuf[CH], vbuf[CH];
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int idx = tid + c * kThreads;
-      const size_t off = ((size_t)kb * kBK + idx / CPR) * D + (idx % CPR) * 8;
-      kbuf[c] = *reinterpret_cast<const uint4*>(kbase + off);
-      vbuf[c] = *reinterpret_cast<const uint4*>(vbase + off);
-    }
-    __syncthreads();  // every warp is done with the previous tile
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int idx = tid + c * kThreads;
-      const int row = idx / CPR, col = (idx % CPR) * 8;
-      *reinterpret_cast<uint4*>(ks + row * LDK + col) = kbuf[c];
-      const bf16* e = reinterpret_cast<const bf16*>(&vbuf[c]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(col + i) * LDV + row] = e[i];
-    }
-    __syncthreads();
+    const int st = kb % NS;
+    const uint32_t k_tile = k_s + st * L::kTileBytes, v_tile = v_s + st * L::kTileBytes;
+    mbar_wait(full + 8 * st, (kb / NS) & 1);
+    __syncwarp();
 
-    // S = (q * scale) . K^T for this warp's 16 rows x 64 columns
-    float s[NT][4];
+    // S = (q * scale) . K^T, both operands K-major in shared memory
+    fence_operand(s);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kr = ks + (nt * 8 + g) * LDK + 2 * t4;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) mma_bf16(s[nt], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
-    if (causal) {
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(s, kmajor_desc<D>(q_s, kBQ, kk), kmajor_desc<D>(k_tile, BK, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(s);
+
+    // -1e30 for the causal future and for keys past S (a box that runs
+    // past the head's last row is zero-filled, and a zero key scores 0)
+    if ((causal && kb * BK + BK - 1 > qi * kBQ) || kb * BK + BK > s_len) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int k_pos = kb * kBK + nt * 8 + 2 * t4 + j;
-          if (k_pos > q_pos0) s[nt][j] = -1e30f;
-          if (k_pos > q_pos1) s[nt][2 + j] = -1e30f;
+        for (int e = 0; e < 2; ++e) {
+          const int k_pos = kb * BK + nt * 8 + 2 * t4 + e;
+          const bool past = k_pos >= s_len;
+          if (past || (causal && k_pos > q_pos0)) s[4 * nt + e] = -1e30f;
+          if (past || (causal && k_pos > q_pos1)) s[4 * nt + 2 + e] = -1e30f;
         }
     }
-    // online softmax: a row's 64 scores sit in the 4 threads of a quad
+    // online softmax in base 2: a row's scores sit in the 4 threads of a quad
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
     }
 #pragma unroll
     for (int w = 1; w < 4; w <<= 1) {
@@ -278,39 +350,52 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    const float a0 = exp2f((m0 - mn0) * kLog2e), a1 = exp2f((m1 - mn1) * kLog2e);
     m0 = mn0;
     m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
+    const float ms0 = mn0 * kLog2e, ms1 = mn1 * kLog2e;
+    float sum0 = 0.f, sum1 = 0.f;
     uint32_t pf[NT][2];  // P rounded to bf16, packed as A-fragment halves
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const float p00 = expf(s[nt][0] - mn0), p01 = expf(s[nt][1] - mn0);
-      const float p10 = expf(s[nt][2] - mn1), p11 = expf(s[nt][3] - mn1);
-      l0 += p00 + p01;
-      l1 += p10 + p11;
+      const float p00 = exp2f(fmaf(s[4 * nt], kLog2e, -ms0));
+      const float p01 = exp2f(fmaf(s[4 * nt + 1], kLog2e, -ms0));
+      const float p10 = exp2f(fmaf(s[4 * nt + 2], kLog2e, -ms1));
+      const float p11 = exp2f(fmaf(s[4 * nt + 3], kLog2e, -ms1));
+      sum0 += p00 + p01;
+      sum1 += p10 + p11;
       pf[nt][0] = pack_bf16(p00, p01);
       pf[nt][1] = pack_bf16(p10, p11);
     }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
-      acc[j][0] *= a0;
-      acc[j][1] *= a0;
-      acc[j][2] *= a1;
-      acc[j][3] *= a1;
+      acc[4 * j] *= a0;
+      acc[4 * j + 1] *= a0;
+      acc[4 * j + 2] *= a1;
+      acc[4 * j + 3] *= a1;
     }
-    // O += P . V: the S accumulator of column tiles 2kk, 2kk+1 is the A
-    // fragment of k-step kk
+
+    // O += P . V: P from registers (the S accumulator of column tiles 2kk
+    // and 2kk + 1 is the A fragment of k-step kk), V read MN-major
+    // (transpose-B) from its row-major tile
+    fence_operand(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const bf16* vr = vt + (j * 8 + g) * LDV + kk * 16 + 2 * t4;
-        mma_bf16(acc[j], a, ld32(vr), ld32(vr + 8));
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
+                             pf[2 * kk + 1][1]};
+      wgmma_rs<D>(acc, a, v_desc<D>(v_tile, kk), 1);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+
+    // every warp has waited out its products on this stage: hand it back
+    named_barrier_sync(1, kThreads);
+    if (tid == 0 && kb + NS < n_kb)
+      load_kv<D>(&k_map, &v_map, k_tile, v_tile, full + 8 * st, kb + NS, bh);
   }
 
 #pragma unroll
@@ -323,8 +408,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
   bf16* o1 = o0 + 8 * D;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
-    *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[j][0] / ls0, acc[j][1] / ls0);
-    *reinterpret_cast<uint32_t*>(o1 + j * 8) = pack_bf16(acc[j][2] / ls1, acc[j][3] / ls1);
+    *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[4 * j] / ls0, acc[4 * j + 1] / ls0);
+    *reinterpret_cast<uint32_t*>(o1 + j * 8) =
+        pack_bf16(acc[4 * j + 2] / ls1, acc[4 * j + 3] / ls1);
   }
   if (t4 == 0) {
     lse[(size_t)bh * t_len + q_pos0] = m0 + logf(ls0);
@@ -332,30 +418,44 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
   }
 }
 
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                         int t, int s, int causal, float scale, cudaStream_t stream) {
+  using L = WgLayout<D>;
+  const CUtensorMapSwizzle swizzle =
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  // the maps hold this call's pointers, so they are encoded per call
+  CUtensorMap q_map, k_map, v_map;
+  if (hopper::encode_bf16_map_3d(&q_map, q, D, t, bh, L::kCols, kBQ, swizzle) != CUDA_SUCCESS ||
+      hopper::encode_bf16_map_3d(&k_map, k, D, s, bh, L::kCols, L::kBK, swizzle) !=
+          CUDA_SUCCESS ||
+      hopper::encode_bf16_map_3d(&v_map, v, D, s, bh, L::kCols, L::kBK, swizzle) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)bh * (unsigned)(t / kBQ), kThreads, L::kSmem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, t, s, causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                    int t, int s, int causal, float scale, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)bh * (unsigned)(t / kBQ);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const size_t smem = sizeof(T) * ((kBQ + kBK) * (D + 8) + D * (kBK + 8));
-    auto kern = flash_fwd_mma_kernel<D>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), lse, t, s, causal, scale);
+    return launch_wgmma<D>(q, k, v, o, lse, bh, t, s, causal, scale, stream);
   } else {
     const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1));
     auto kern = flash_fwd_fma_kernel<T, D>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, stream>>>(
+    kern<<<(unsigned)bh * (unsigned)(t / kBQ), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), lse, t, s, causal, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -375,7 +475,8 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success). T and S must be
+// Returns the cudaError_t of the launch (0 = success; cudaErrorInvalidValue
+// also for a tensor map the driver refuses to encode). T and S must be
 // multiples of 64; the caller allocates o and lse and checks shapes,
 // dtypes, contiguity and 16-byte alignment.
 extern "C" int ray_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

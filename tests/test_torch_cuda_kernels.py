@@ -31,10 +31,14 @@ def _max_err(a, b):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [32, 64, 128])
-def test_flash_kernel_matches_plain_version(cuda, dtype, atol, causal, d):
-    g = torch.Generator(device=cuda).manual_seed(d)
-    qg, kg, vg = (torch.randn(8, 256, d, generator=g, device=cuda).to(dtype)
-                  for _ in range(3))
+@pytest.mark.parametrize("t,s", [(256, 256), (192, 192), (128, 320)])
+def test_flash_kernel_matches_plain_version(cuda, dtype, atol, causal, d, t, s):
+    """O and lse against the plain version. The bf16 kernel's key tile is
+    128 rows at head_dim 32/64: T = 192 and S = 320 end inside a tile,
+    whose zero-filled keys must be masked."""
+    g = torch.Generator(device=cuda).manual_seed(d + t + s)
+    qg = torch.randn(8, t, d, generator=g, device=cuda).to(dtype)
+    kg, vg = (torch.randn(8, s, d, generator=g, device=cuda).to(dtype) for _ in range(2))
     before = F.flash_attention_forward.launches
     out, lse = F.flash_attention_forward(qg, kg, vg, causal)
     ref_out, ref_lse = F.flash_attention_reference(qg, kg, vg, causal)

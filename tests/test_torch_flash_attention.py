@@ -58,14 +58,20 @@ def test_ragged_noncausal_takes_reference():
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_grouped_forward_and_lse_match_jax(causal):
+@pytest.mark.parametrize("t,s", [(128, 128), (192, 192), (128, 320)])
+def test_grouped_forward_and_lse_match_jax(causal, t, s):
     """The kernel's plain version on the grouped layout: O and the per-row
-    logsumexp against the Pallas forward (_fwd_impl) in interpret mode."""
+    logsumexp against the Pallas forward (_fwd_impl, 64-row blocks) in
+    interpret mode. The tails pin what the CUDA kernel must keep where its
+    128-key tile overruns: T = 192 is not a multiple of 128, and T = 128
+    with S = 320 puts keys past every causal query and past the last full
+    128-key tile (no causal offset when T != S)."""
     rng = np.random.default_rng(5)
-    qg, kg, vg = (rng.standard_normal((3, 128, 32), dtype=np.float32) for _ in range(3))
-    o_j, lse_j = J._fwd_impl(*map(jnp.asarray, (qg, kg, vg)), causal, 128, 128, True)
+    qg = rng.standard_normal((3, t, 32), dtype=np.float32)
+    kg, vg = (rng.standard_normal((3, s, 32), dtype=np.float32) for _ in range(2))
+    o_j, lse_j = J._fwd_impl(*map(jnp.asarray, (qg, kg, vg)), causal, 64, 64, True)
     o_t, lse_t = T.flash_attention_forward(*map(torch.from_numpy, (qg, kg, vg)), causal)
-    assert tuple(lse_t.shape) == (3, 1, 128) and lse_t.dtype == torch.float32
+    assert tuple(lse_t.shape) == (3, 1, t) and lse_t.dtype == torch.float32
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=2e-3)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=2e-3)
 
