@@ -139,7 +139,7 @@ def phase_card_and_build() -> None:
                 args = re.sub(r"L[ij](\d+)E", r"\1,", entry.group(2))
                 args = re.sub(r"^f", "float,", args).replace("13__nv_bfloat16", "bf16,")
                 print(f"  ptxas {src}: {entry.group(1)}<{args.rstrip(',')}>")
-            elif "registers" in line or "spill" in line or "arning" in line:
+            elif any(w in line for w in ("registers", "spill", "arning", "Performance Loss")):
                 print(f"  ptxas {src}: {line.strip()}")
 
 

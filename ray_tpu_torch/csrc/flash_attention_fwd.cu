@@ -35,9 +35,11 @@
 // f32 (tests and checks): plain f32 FMAs from shared memory, 64x64 tiles.
 // Both keep the Pallas rounding points: q * scale in the input dtype, P cast
 // to V's dtype before P.V, f32 accumulation.
-// Not yet done (later work): 128-row Q tiles over two consumer warpgroups
-// with a producer warp and setmaxnreg (FlashAttention-3's block), overlap
-// of the softmax with the next Q.K^T inside a warpgroup, persistent blocks.
+// Not yet done (later work): persistent blocks, and on them
+// FlashAttention-3's block (128-row Q tiles over two consumer warpgroups, a
+// producer warpgroup, setmaxnreg; without persistence its one block per SM
+// loses to 2-3 of these blocks overlapping); overlap of the softmax with
+// the next Q.K^T inside a warpgroup.
 #include <type_traits>
 
 #include "common.cuh"
