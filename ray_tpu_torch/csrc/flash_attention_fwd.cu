@@ -478,7 +478,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success; cudaErrorInvalidValue
-// also for a tensor map the driver refuses to encode). T and S must be
+// also for a tensor map that cuTensorMapEncodeTiled refuses). T and S must be
 // multiples of 64; the caller allocates o and lse and checks shapes,
 // dtypes, contiguity and 16-byte alignment.
 extern "C" int ray_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

@@ -228,11 +228,11 @@ template <> __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const 
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
 // so that the library needs no -lcuda. A 3-D bf16 map of a contiguous
 // [d2, d1, d0] tensor (d0 innermost), box [1, box1, box0], with the given
 // swizzle; out-of-bounds elements of a box read as zero. Returns
-// CUDA_SUCCESS or the driver's error.
+// CUDA_SUCCESS or the encoder's error.
 inline CUresult encode_bf16_map_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
                                    uint64_t d2, uint32_t box0, uint32_t box1,
                                    CUtensorMapSwizzle swizzle) {
