@@ -10,11 +10,13 @@ passes or exits non-zero:
    ``ray_tpu_torch/csrc`` and prints the build time and ptxas report;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at edge cases, and times kernel, plain version
-   and (for flash) ``scaled_dot_product_attention``, forward or backward,
-   as a yardstick; the flash forward at the forward cell's and the train
-   cell's shapes and where its key tiles end inside the keys; the backward
-   kernels also through ``flash_attention``'s autograd (GQA, ragged causal
-   T=100 and T=1023) against the CPU;
+   and (for flash) ``scaled_dot_product_attention``, forward or backward
+   (the backward under its flash and cuDNN backends), as a yardstick; the
+   flash forward at the forward cell's and the train cell's shapes and
+   where its key tiles end inside the keys; the backward kernels at T = S,
+   causal S > T (key tiles no query sees), T > S and T = 0, and through
+   ``flash_attention``'s autograd (GQA, ragged causal T=100 and T=1023)
+   against the CPU;
 3. runs ``forward`` of ``ModelConfig()`` at B=4, T=2048 (flash launches
    counted from zero), and checks an f32 forward on the card against the
    CPU's plain path;
@@ -254,10 +256,10 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def grouped_bwd_inputs(bh, t, d, causal, dtype, seed):
+def grouped_bwd_inputs(bh, t, d, causal, dtype, seed, s=None):
     g = gen(seed)
-    qg, kg, vg, do = (torch.randn(bh, t, d, generator=g, device=DEV).to(dtype)
-                      for _ in range(4))
+    qg, kg, vg, do = (torch.randn(bh, n, d, generator=g, device=DEV).to(dtype)
+                      for n in (t, s or t, s or t, t))
     out, lse = flash_attention_forward(qg, kg, vg, causal)
     delta = (do.float() * out.float()).sum(-1)[:, None, :]
     return qg, kg, vg, do, lse, delta
@@ -286,6 +288,26 @@ def wrapper_bwd_case(name, b, t, h, hkv, d, causal, dtype, seed):
     check(launched == (1, 1), f"flash bwd {name}: launches {launched}")
 
 
+def sdpa_backward_ms(qg, kg, vg, do):
+    """The yardstick: SDPA's backward on the grouped layout (dq, dk and dv in
+    one call, from a saved output), causal, timed under each backend that
+    takes these inputs, the forward built inside the same context. Returns
+    {backend: ms}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (qg, kg, vg))
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                                        is_causal=True)
+                times[backend.name.lower()] = time_ms(lambda: torch.autograd.grad(
+                    out4, (q4, k4, v4), do[None], retain_graph=True))
+        except RuntimeError as e:  # the backend does not take these inputs here
+            print(f"sdpa {backend.name}: not available ({str(e).splitlines()[0][:120]})")
+    return times
+
+
 def bwd_timing(bh, t, d, seed):
     """dQ and dK/dV kernels at one causal bf16 shape: error against the
     plain versions, kernel, plain and SDPA-backward ms, and each bound."""
@@ -299,12 +321,11 @@ def bwd_timing(bh, t, d, seed):
     check(max(errs) <= BWD_TOL[dtype], f"flash bwd bh={bh} T={t} D={d}: rel err {errs}")
     e_dq = max_err(dq, want[0])
     e_dkv = max(max_err(dk, want[1]), max_err(dv, want[2]))
-    # the yardstick: SDPA's backward on the same layout (dq, dk and dv in
-    # one call), from a saved output
-    q4, k4, v4 = (x[None].detach().requires_grad_() for x in (qg, kg, vg))
-    out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    sdpa = time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do[None],
-                                               retain_graph=True))
+    sdpa_by = sdpa_backward_ms(qg, kg, vg, do)
+    backend = min(sdpa_by, key=sdpa_by.get) if sdpa_by else None
+    sdpa = sdpa_by[backend] if backend else None
+    print(f"sdpa backward bh={bh} T={t} D={d} causal: "
+          + (", ".join(f"{b} {ms:.4f} ms" for b, ms in sdpa_by.items()) or "no backend"))
     pairs = bh * t * (t + 1) // 2
     ins = nbytes(qg, kg, vg, do, lse, delta)
     rows = {}
@@ -317,33 +338,61 @@ def bwd_timing(bh, t, d, seed):
         plain = time_ms(lambda: plain_fn(*args, True), iters=3, warmup=1)
         bnd, by = bound_ms(ins + nbytes(*outs), products * 2.0 * d * pairs, dtype)
         print(f"flash bwd {name} bf16 bh={bh} T={t} D={d} causal: max_abs_err {err:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq+dk+dv) "
-              f"{sdpa:.4f} ms, bound {bnd:.4f} ms ({by}), "
-              f"{products * 2.0 * d * pairs / ms / 1e9:.1f} TFLOP/s")
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq+dk+dv, "
+              f"{backend}) {sdpa if sdpa is None else f'{sdpa:.4f}'} ms, bound {bnd:.4f} ms "
+              f"({by}), {products * 2.0 * d * pairs / ms / 1e9:.1f} TFLOP/s")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                          library_ms=sdpa)
+                          library_ms=sdpa, library=f"sdpa backward ({backend})")
     return rows
+
+
+def bwd_kernel_case(bh, t, s, d, causal, dtype, seed):
+    """Both backward kernels against their plain versions, one launch each."""
+    args = grouped_bwd_inputs(bh, t, d, causal, dtype, seed, s)
+    before = bwd_launches()
+    got = flash_attention_backward(*args, causal)
+    launched = tuple(a - b for a, b in zip(bwd_launches(), before))
+    want = flash_attention_backward_reference(*args, causal)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    tag = f"{'f32' if dtype == torch.float32 else 'bf16'} causal={causal} hd{d}"
+    print(f"flash bwd kernels {tag} bh={bh} T={t} S={s}: dq/dk/dv rel err "
+          f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol {BWD_TOL[dtype]}) "
+          f"launches dq/dkv {launched}")
+    check(all(e <= BWD_TOL[dtype] for e in errs), f"flash bwd {tag} T={t} S={s}: {errs}")
+    check(launched == (1, 1), f"flash bwd {tag}: launches {launched}")
+
+
+def bwd_without_queries(dtype):
+    """T = 0 against S = 128 keys: dK and dV are zeros. The outputs' memory
+    is taken from a freed block of ones, so zeros must be written."""
+    bh, s, d = 4, 128, 64
+    torch.ones(2, bh, s, d, dtype=dtype, device=DEV)  # freed at once, then reused
+    qg, do = (torch.zeros(bh, 0, d, dtype=dtype, device=DEV) for _ in range(2))
+    kg, vg = (torch.randn(bh, s, d, generator=gen(37), device=DEV).to(dtype)
+              for _ in range(2))
+    row = torch.zeros(bh, 1, 0, device=DEV)
+    before = flash_attention_bwd_dkv.launches
+    dk, dv = flash_attention_bwd_dkv(qg, kg, vg, do, row, row, True)
+    torch.cuda.synchronize()
+    nonzero = int(torch.count_nonzero(dk)) + int(torch.count_nonzero(dv))
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    print(f"flash bwd dkv {tag} T=0 S={s}: nonzero entries {nonzero}, "
+          f"launches {flash_attention_bwd_dkv.launches - before}")
+    check(nonzero == 0 and tuple(dk.shape) == (bh, s, d), f"flash bwd dkv {tag} T=0")
 
 
 def phase_flash_backward():
     """The dQ and dK/dV kernels against their plain versions on the grouped
-    layout, through flash_attention's autograd against the CPU, then timed
-    at the two training shapes."""
+    layout (T = S; causal S > T, whose later key tiles no query sees; T > S
+    non-causal; T = 0), through flash_attention's autograd against the CPU,
+    then timed at the two training shapes."""
     for dtype in (torch.float32, torch.bfloat16):
-        for causal in (True, False):
-            for d in (32, 64, 128):
-                args = grouped_bwd_inputs(8, 256, d, causal, dtype, d + int(causal))
-                before = bwd_launches()
-                got = flash_attention_backward(*args, causal)
-                launched = tuple(a - b for a, b in zip(bwd_launches(), before))
-                want = flash_attention_backward_reference(*args, causal)
-                errs = [rel_err(a, b) for a, b in zip(got, want)]
-                tag = f"{'f32' if dtype == torch.float32 else 'bf16'} causal={causal} hd{d}"
-                print(f"flash bwd kernels {tag} bh=8 T=256: dq/dk/dv rel err "
-                      f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol {BWD_TOL[dtype]}) "
-                      f"launches dq/dkv {launched}")
-                check(all(e <= BWD_TOL[dtype] for e in errs), f"flash bwd {tag}: {errs}")
-                check(launched == (1, 1), f"flash bwd {tag}: launches {launched}")
+        for d in (32, 64, 128):
+            for causal in (True, False):
+                bwd_kernel_case(8, 256, 256, d, causal, dtype, d + int(causal))
+            bwd_kernel_case(4, 128, 320, d, True, dtype, d + 2)
+            bwd_kernel_case(4, 320, 128, d, False, dtype, d + 3)
+        bwd_without_queries(dtype)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         wrapper_bwd_case(f"{tag} GQA 8->2 hd64", 2, 256, 8, 2, 64, True, dtype, 31)

@@ -1,0 +1,189 @@
+"""Time the bf16 flash kernels' tile choices on one GPU.
+
+    python3 flash_tiles.py fwd     # the forward's key-tile rows and K/V ring stages
+    python3 flash_tiles.py dkv     # the dK/dV kernel's Q-tile rows and Q/dO ring stages
+
+Each kernel takes its tiles per head_dim from one struct in its source:
+``WgTiles<D>`` (``kBK``, ``kStages``) in
+``ray_tpu_torch/csrc/flash_attention_fwd.cu`` and ``DkvTiles<D>`` (``kQT``,
+``kStages``) in ``flash_attention_bwd.cu``. This script builds the source
+as committed and once per alternative below (one ``nvcc`` each, started
+together, into ``ray_tpu_torch/_build/tiles/``), checks every alternative
+against the committed build, and times them in turns at the two training
+shapes (bf16, causal): bh=32, T=2048, D=64 and bh=128, T=1024, D=128. It
+prints the ptxas register and spill lines of each dK/dV build. Needs one
+CUDA card and ``nvcc``; exits 2 without a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+
+import torch
+
+if not torch.cuda.is_available():
+    print("flash_tiles: no CUDA device", file=sys.stderr)
+    sys.exit(2)
+
+from ray_tpu_torch import _cuda  # noqa: E402
+from ray_tpu_torch.ops import flash_attention as F  # noqa: E402
+
+DEV = torch.device("cuda")
+OUT = _cuda.BUILD_DIR / "tiles"
+SHAPES = [(32, 2048, 64), (128, 1024, 128)]  # (bh, T, D)
+# per kernel: source, tile struct and its two fields, the counted flops per
+# live (query, key) pair over D (fwd: 2 products of 2 * D; dkv: 5), and the
+# alternatives (head_dim, first field, ring stages) beside the committed struct
+KERNELS = {
+    "fwd": dict(source="flash_attention_fwd.cu", struct="WgTiles", fields=("kBK", "kStages"),
+                flops_per_pair=4,
+                alternatives=[(64, 64, 2), (64, 128, 3), (128, 128, 2), (128, 64, 3)]),
+    "dkv": dict(source="flash_attention_bwd.cu", struct="DkvTiles", fields=("kQT", "kStages"),
+                flops_per_pair=10,
+                alternatives=[(64, 32, 2), (64, 64, 2), (128, 32, 2), (128, 64, 3),
+                              (128, 32, 3)]),
+}
+
+
+def tiles_line(spec, d: int, first: int, stages: int) -> str:
+    a, b = spec["fields"]
+    return (f"template <> struct {spec['struct']}<{d}> {{ static constexpr int {a} = {first}, "
+            f"{b} = {stages}; }};")
+
+
+def build(spec, name: str, edit=None) -> subprocess.Popen:
+    src = OUT / name
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_cuda.CSRC, src)
+    if edit:
+        path = src / spec["source"]
+        pattern = rf"template <> struct {spec['struct']}<{edit[0]}> {{[^\n]*}};"
+        text = path.read_text()
+        assert re.search(pattern, text), f"no {spec['struct']}<{edit[0]}> in {spec['source']}"
+        path.write_text(re.sub(pattern, tiles_line(spec, *edit), text))
+    cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", str(src / "lib.so"),
+           str(src / spec["source"])]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def fwd_inputs(bh, t, d):
+    g = torch.Generator(device=DEV).manual_seed(11)
+    return tuple(torch.randn(bh, t, d, generator=g, device=DEV).to(torch.bfloat16)
+                 for _ in range(3))
+
+
+def fwd_call(lib, q, k, v):
+    fn = lib.ray_flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    bh, t, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, 1, t), dtype=torch.float32, device=DEV)
+    err = fn(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), _cuda.ptr(lse), bh, t,
+             t, d, 1, 1.0 / d**0.5, _cuda.DTYPE_CODES[torch.bfloat16], _cuda.current_stream())
+    _cuda.check(err, "flash_tiles fwd")
+    return (o,)
+
+
+def dkv_inputs(bh, t, d):
+    g = torch.Generator(device=DEV).manual_seed(12)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=DEV).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = F.flash_attention_forward(q, k, v, True)  # the committed forward
+    delta = (do.float() * out.float()).sum(-1)[:, None, :]
+    return q, k, v, do, lse, delta
+
+
+def dkv_call(lib, q, k, v, do, lse, delta):
+    fn = lib.ray_flash_attention_bwd_dkv
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    bh, t, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = fn(*(_cuda.ptr(x) for x in (q, k, v, do, lse, delta, dk, dv)), bh, t, t, d, 1,
+             1.0 / d**0.5, _cuda.DTYPE_CODES[torch.bfloat16], _cuda.current_stream())
+    _cuda.check(err, "flash_tiles dkv")
+    return dk, dv
+
+
+def ptxas_report(log: str, kernel: str):
+    """ptxas's lines (registers, spills, advisories) for each instance of
+    ``kernel``, from an ``nvcc -Xptxas -v`` log."""
+    lines, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+            if inside:
+                lines.append(line.split("'")[1])
+        elif inside and any(w in line for w in ("registers", "spill", "arning", "Loss")):
+            lines.append(line.strip())
+    return lines
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    if len(sys.argv) != 2 or sys.argv[1] not in KERNELS:
+        sys.exit(f"usage: python3 flash_tiles.py {'|'.join(KERNELS)}")
+    kind = sys.argv[1]
+    spec = KERNELS[kind]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip())
+    a, b = spec["fields"]
+    committed = re.findall(rf"template <> struct {spec['struct']}<(\d+)> {{ static constexpr "
+                           rf"int {a} = (\d+), {b} = (\d+); }};",
+                           (_cuda.CSRC / spec["source"]).read_text())
+    print(f"{kind} committed (head_dim, {a}, {b}):", committed)
+    procs = {"committed": build(spec, "committed")}
+    for alt in spec["alternatives"]:
+        name = "d{}_{}{}_ns{}".format(alt[0], a[1:].lower(), alt[1], alt[2])
+        procs[name] = build(spec, name, alt)
+    _cuda.build_all()  # the package's own kernels, for the dK/dV inputs' forward
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(log)
+            sys.exit(f"nvcc failed on {name}")
+        if kind == "dkv":
+            for line in ptxas_report(log, "flash_bwd_dkv_wgmma_kernel"):
+                print(f"ptxas {name}: {line}")
+        libs[name] = ctypes.CDLL(str(OUT / name / "lib.so"))
+    inputs, call = (fwd_inputs, fwd_call) if kind == "fwd" else (dkv_inputs, dkv_call)
+    for bh, t, d in SHAPES:
+        args = inputs(bh, t, d)
+        flops = spec["flops_per_pair"] * d * bh * t * (t + 1) / 2
+        names = ["committed"] + [n for n in libs if n.startswith(f"d{d}_")]
+        want = call(libs["committed"], *args)
+        for name in names[1:]:
+            got = call(libs[name], *args)
+            err = max((x.float() - w.float()).abs().max().item()
+                      / max(1.0, w.float().abs().max().item()) for x, w in zip(got, want))
+            if err > 2e-2:
+                sys.exit(f"{name}: relative error {err} against the committed build")
+        times = {n: [] for n in names}
+        for order in (names, names[::-1]):  # in turns, forward then back
+            for n in order:
+                times[n].append(time_ms(lambda: call(libs[n], *args)))
+        for n in names:
+            print(f"{kind} bh={bh} T={t} D={d} causal {n}: "
+                  + ", ".join(f"{ms:.4f} ms ({flops / ms / 1e9:.0f} TFLOP/s)" for ms in times[n]))
+
+
+if __name__ == "__main__":
+    main()

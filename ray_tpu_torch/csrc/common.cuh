@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels: element conversion, 16-byte tile
-// loads into f32 shared memory, and the bf16 tensor-core product
-// (mma.sync m16n8k16) with its fragment helpers.
+// loads into f32 shared memory, in-place scaling of a bf16 tile, and the
+// bf16 tensor-core product (mma.sync m16n8k16) with its fragment helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +42,23 @@ __device__ __forceinline__ void store_vec(float* dst, const uint4& u) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Multiply a bf16 tile of BYTES bytes in shared memory by mul in place,
+// each product rounded to bf16, 16 bytes at a time over THREADS threads
+// (elementwise, so the tile's swizzle does not matter)
+template <int BYTES, int THREADS>
+__device__ __forceinline__ void scale_bf16_tile(void* tile, int tid, float mul) {
+  static_assert(BYTES % (16 * THREADS) == 0, "tile must split evenly");
+  uint4* v = reinterpret_cast<uint4*>(tile);
+#pragma unroll
+  for (int i = 0; i < BYTES / 16 / THREADS; ++i) {
+    uint4 u = v[tid + i * THREADS];
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * mul);
+    v[tid + i * THREADS] = u;
+  }
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {

@@ -19,12 +19,29 @@
 // or 128) that is far above the card's ~295 flops per byte, so both are
 // bound by operations and the tensor cores (989 TFLOP/s bf16) set the
 // floor. Designs:
-//   - bf16 (the model's dtype): warp-level tensor-core products
-//     (mma.sync m16n8k16, f32 accumulate), 4 warps of 16 rows each. The
-//     accumulator of S (or S^T in dK/dV) becomes, after the elementwise
-//     step, the A operand of the next product in registers (the
+//   - bf16 dK/dV (the model's dtype): one warpgroup (128 threads) per
+//     (bh, 64-key tile), built from the Hopper blocks of hopper.cuh. K and
+//     V arrive once by TMA and stay in swizzled shared memory as the A
+//     operands of S^T = K.(q * scale)^T and dP^T = V.dO^T; the dK and dV
+//     accumulators (64 x D f32 each) stay in registers for the whole walk.
+//     The walk's Q tiles stream with their dO tiles, lse and delta by TMA
+//     through a ring of mbarrier-completed stages that thread 0 refills once
+//     all four warps are past their products on one (a named barrier), so
+//     the next tiles' loads run under this tile's math. Five wgmma products
+//     a tile: S^T and dP^T read the Q and dO tiles K-major; dV += P^T_hi.dO
+//     + P^T_lo.dO and dK += dS^T.(q * scale) take P^T and dS^T from
+//     registers (the S^T accumulator's layout is the A fragment's) and read
+//     the same dO and Q tiles MN-major (transpose-B), so nothing is copied
+//     transposed. P is formed while dP^T runs and dV is issued before dP^T
+//     is read; dK runs while the next Q tile is scaled (q * scale, rounded
+//     to bf16, in place and fenced for the async proxy). A key tile that no
+//     query sees (causal, ki * 64 >= T) writes zeros and issues nothing;
+//     T = 0 is a memset, since a tensor map cannot have an empty dimension.
+//   - bf16 dQ: warp-level tensor-core products (mma.sync m16n8k16, f32
+//     accumulate), 4 warps of 16 rows each. The accumulator of S becomes,
+//     after the elementwise step, the A operand of dS.K in registers (the
 //     FlashAttention-2 layout trick), so P and dS never touch shared
-//     memory. Tiles that feed a B operand along their rows are stored
+//     memory; K, which feeds a B operand along its rows, is stored
 //     transposed in shared memory as well.
 //   - f32 (tests and checks): plain f32 FMAs from shared memory, two
 //     threads per row.
@@ -36,21 +53,23 @@
 //     and dV takes both products (dO is bf16, so each product is exact),
 //     which leaves P's error near 2^-17 of P instead of the 2^-9 of
 //     rounding it as FlashAttention-2 does on GPUs, at one extra product
-//     of the four.
+//     of the four; dS is formed from P_hi + P_lo.
 //   - masked entries (k_pos > q_pos) take S = -1e30 and underflow to
 //     exactly 0 through exp(S - lse); padded query rows have dO = 0 and
 //     delta = 0, so they add nothing to dK/dV.
-// Not yet done (later work): wgmma and TMA, a multi-stage pipeline for the
-// streamed tiles, and ldmatrix in place of the transposed copies.
+// Not yet done (later work): the dQ kernel on the same blocks (wgmma, TMA
+// ring, K read MN-major in place of its transposed copy); persistent
+// blocks; FlashAttention-2's single pass with atomic dQ.
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace rtt;
 
 namespace {
 
-constexpr int kThreads = 128;  // FMA: two threads per row; MMA: 16 rows per warp
+constexpr int kThreads = 128;  // FMA: 2 threads a row; MMA: 16 rows a warp; wgmma: a warpgroup
 constexpr int kBQ = 64;        // Q tile of the dQ kernel (and of the f32 dK/dV kernel)
 constexpr int kBK = 64;        // K tile of both kernels
 
@@ -386,135 +405,259 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
   }
 }
 
-// Q tile of the bf16 dK/dV kernel: 32 rows at head_dim 128 keeps the dK
-// and dV accumulators (2 x 64 registers a thread) and the S^T/dP^T tiles
-// inside the register file; 64 rows below that.
-template <int D> __host__ __device__ constexpr int dkv_q_tile() { return D >= 128 ? 32 : 64; }
+// The bf16 dK/dV kernel's Q-tile rows (the N of S^T and dP^T, the
+// contraction of dV and dK) and Q/dO ring stages by head_dim, timed by
+// flash_tiles.py dkv (registers, not shared memory, hold D = 64 and 128 to
+// two blocks an SM)
+template <int D> struct DkvTiles;
+template <> struct DkvTiles<32> { static constexpr int kQT = 64, kStages = 2; };
+template <> struct DkvTiles<64> { static constexpr int kQT = 64, kStages = 3; };
+template <> struct DkvTiles<128> { static constexpr int kQT = 64, kStages = 2; };
+
+// Shared-memory plan of the bf16 dK/dV kernel (offsets from a 1024 B
+// aligned base): the K and V tiles, then the ring's Q tiles, dO tiles,
+// lse rows and delta rows, stage after stage, then the barriers (one per
+// stage, then K/V's). Tiles are laid out as hopper::TileBoxes<D>.
+template <int D> struct DkvLayout {
+  static constexpr int kQT = DkvTiles<D>::kQT;
+  static constexpr int kStages = DkvTiles<D>::kStages;
+  static constexpr int kKVBytes = kBK * D * 2;   // one K or V tile
+  static constexpr int kQBytes = kQT * D * 2;    // one Q or dO tile
+  static constexpr int kRowBytes = kQT * 4;      // one tile's lse or delta
+  static constexpr int kStageTx = 2 * kQBytes + 2 * kRowBytes;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kQ = 2 * kKVBytes;
+  static constexpr int kDO = kQ + kStages * kQBytes;
+  static constexpr int kLse = kDO + kStages * kQBytes;
+  static constexpr int kDelta = kLse + kStages * kRowBytes;
+  static constexpr int kBar = kDelta + kStages * kRowBytes;
+  static constexpr int kSmem = 1024 + kBar + 8 * (kStages + 1);  // + alignment slack
+  static_assert(kQBytes % 1024 == 0 && kRowBytes % 128 == 0, "TMA destinations stay aligned");
+};
+
+// Q tile qb of Q, dO, lse and delta into ring stage st, completing on its
+// barrier
+template <int D>
+__device__ __forceinline__ void load_q_stage(const CUtensorMap* q_map, const CUtensorMap* do_map,
+                                             const CUtensorMap* lse_map,
+                                             const CUtensorMap* delta_map, uint32_t base, int st,
+                                             int qb, int bh) {
+  using L = DkvLayout<D>;
+  const uint32_t bar = base + L::kBar + 8 * st;
+  const int row = qb * L::kQT;
+  hopper::mbar_arrive_expect_tx(bar, L::kStageTx);
+  hopper::tma_load_tile<D, L::kQT>(base + L::kQ + st * L::kQBytes, q_map, bar, row, bh);
+  hopper::tma_load_tile<D, L::kQT>(base + L::kDO + st * L::kQBytes, do_map, bar, row, bh);
+  hopper::tma_load_3d(base + L::kLse + st * L::kRowBytes, lse_map, bar, row, bh, 0);
+  hopper::tma_load_3d(base + L::kDelta + st * L::kRowBytes, delta_map, bar, row, bh, 0);
+}
+
+// Split a, b into bf16 hi = bf16(x) and lo = bf16(x - hi), each packed as
+// an A-fragment half (a in the low half)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// hi + lo of a split_bf16 pair, back in f32
+__device__ __forceinline__ float2 join_bf16(uint32_t hi, uint32_t lo) {
+  const float2 h = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&hi));
+  const float2 l = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&lo));
+  return make_float2(h.x + l.x, h.y + l.y);
+}
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len,
-    int s_len, int causal, float scale) {
-  constexpr int QT = dkv_q_tile<D>();
-  constexpr int LDN = D + 8;   // rows of K, V, Q, dO
-  constexpr int LDT = QT + 8;  // rows of Q and dO transposed
-  constexpr int NQ = QT / 8;   // S^T column tiles (queries)
-  constexpr int DT = D / 8;    // dk/dv column tiles
-  constexpr int KS = D / 16;   // k-steps over D
-  static_assert(kBK == 16 * (kThreads / 32), "one 16-key strip per warp");
-  static_assert(kBK % QT == 0 && 2 * QT <= kThreads, "tile shapes");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kBK][LDN]
-  bf16* vs = ks + kBK * LDN;                     // [kBK][LDN]
-  bf16* qs = vs + kBK * LDN;                     // [QT][LDN] q * scale
-  bf16* dos = qs + QT * LDN;                     // [QT][LDN]
-  bf16* qt = dos + QT * LDN;                     // [D][LDT] (q * scale)^T
-  bf16* dot = qt + D * LDT;                      // [D][LDT] dO^T
-  float* lse_s = reinterpret_cast<float*>(dot + D * LDT);  // [QT]
-  float* delta_s = lse_s + QT;                              // [QT]
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,      // [bh, T, D] bf16, box [kQT, kCols]
+    const __grid_constant__ CUtensorMap k_map,      // [bh, S, D] bf16, box [kBK, kCols]
+    const __grid_constant__ CUtensorMap v_map,      // [bh, S, D] bf16, box [kBK, kCols]
+    const __grid_constant__ CUtensorMap do_map,     // [bh, T, D] bf16, box [kQT, kCols]
+    const __grid_constant__ CUtensorMap lse_map,    // [bh, 1, T] f32, box kQT
+    const __grid_constant__ CUtensorMap delta_map,  // [bh, 1, T] f32, box kQT
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len, int s_len, int causal,
+    float scale) {
+  using namespace hopper;
+  using L = DkvLayout<D>;
+  constexpr int QT = L::kQT, NS = L::kStages;
+  constexpr int NQ = QT / 8;  // S^T column tiles (queries)
+  constexpr int DT = D / 8;   // dK/dV column tiles
+  constexpr float kLog2e = 1.4426950408889634f;
+  static_assert(kThreads == 128 && kBK == 64, "one warpgroup, one wgmma row block of keys");
+  static_assert(NS >= 2, "the next Q tile is scaled while this one is in use");
 
   const int nk = s_len / kBK;
   const int bh = blockIdx.x / nk;
   const int ki = (int)(blockIdx.x % nk);  // causal: early K tiles see the most Q tiles
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const size_t k_off = ((size_t)bh * s_len + (size_t)ki * kBK) * D;
-  const float scale_t = round_to<bf16>(scale);
-
-  bf16_tile<D, kBK, LDN, 1>(ks, nullptr, k + k_off, tid, 1.f, false);
-  bf16_tile<D, kBK, LDN, 1>(vs, nullptr, v + k_off, tid, 1.f, false);
   const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8 of the tile
   const int k_pos0 = ki * kBK + r0, k_pos1 = k_pos0 + 8;
+  bf16* dk0 = dk + ((size_t)bh * s_len + k_pos0) * D + 2 * t4;
+  bf16* dv0 = dv + ((size_t)bh * s_len + k_pos0) * D + 2 * t4;
 
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[j][i] = dva[j][i] = 0.f;
-
-  const int n_qb = t_len / QT;
   const int qb_start = causal ? ki * kBK / QT : 0;  // earlier Q tiles see nothing
-  for (int qb = qb_start; qb < n_qb; ++qb) {
-    __syncthreads();  // every warp is done with the previous Q tile
-    const size_t q_off = ((size_t)bh * t_len + (size_t)qb * QT) * D;
-    bf16_tile<D, QT, LDN, LDT>(qs, qt, q + q_off, tid, scale_t, true);
-    bf16_tile<D, QT, LDN, LDT>(dos, dot, dout + q_off, tid, 1.f, false);
-    if (tid < QT) lse_s[tid] = lse[(size_t)bh * t_len + qb * QT + tid];
-    else if (tid < 2 * QT) delta_s[tid - QT] = delta[(size_t)bh * t_len + qb * QT + tid - QT];
-    __syncthreads();
-
-    // S^T = K.(q * scale)^T and dP^T = V.dO^T: this warp's 16 keys x QT queries
-    float s[NQ][4], dp[NQ][4];
+  const int n = t_len / QT - qb_start;              // Q tiles on the walk
+  if (n <= 0) {  // a key tile no query sees: zeros, with no load and no product
 #pragma unroll
-    for (int nt = 0; nt < NQ; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, ks, LDN, r0, kk * 16, t4);
-      load_a(av, vs, LDN, r0, kk * 16, t4);
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        const bf16* qr = qs + (nt * 8 + g) * LDN + kk * 16 + 2 * t4;
-        const bf16* orow = dos + (nt * 8 + g) * LDN + kk * 16 + 2 * t4;
-        mma_bf16(s[nt], ak, ld32(qr), ld32(qr + 8));
-        mma_bf16(dp[nt], av, ld32(orow), ld32(orow + 8));
-      }
+    for (int j = 0; j < DT; ++j) {
+      *reinterpret_cast<uint32_t*>(dk0 + j * 8) = 0u;
+      *reinterpret_cast<uint32_t*>(dk0 + 8 * D + j * 8) = 0u;
+      *reinterpret_cast<uint32_t*>(dv0 + j * 8) = 0u;
+      *reinterpret_cast<uint32_t*>(dv0 + 8 * D + j * 8) = 0u;
     }
-    // P^T (split into bf16 hi + lo) and dS^T = P^T * (dP^T - delta)
-    uint32_t phi[NQ][2], plo[NQ][2], dsf[NQ][2];
+    return;
+  }
+
+  extern __shared__ unsigned char smem_raw[];
+  // tiles start on 1024 B: the swizzle atom is 8 rows of 128 B
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t k_s = base, v_s = base + L::kV;
+  const uint32_t full = base + L::kBar;  // stage st's barrier at + 8 * st
+  const uint32_t kv_bar = full + 8 * NS;
+  const float scale_t = round_to<bf16>(scale);
+
+  // thread 0 owns the barriers and issues every TMA load; ring stage st
+  // holds the walk's Q tiles j with j % NS == st
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) mbar_init(full + 8 * st, 1);
+    mbar_init(kv_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(kv_bar, 2 * L::kKVBytes);
+    tma_load_tile<D, kBK>(k_s, &k_map, kv_bar, ki * kBK, bh);
+    tma_load_tile<D, kBK>(v_s, &v_map, kv_bar, ki * kBK, bh);
+    for (int j = 0; j < NS && j < n; ++j)
+      load_q_stage<D>(&q_map, &do_map, &lse_map, &delta_map, base, j, qb_start + j, bh);
+  }
+  // q * scale rounded to bf16 in the first tile, in place, fenced so that
+  // wgmma reads the scaled tile; each later tile is scaled one step ahead
+  mbar_wait(full, 0);
+  scale_bf16_tile<L::kQBytes, kThreads>(sm + L::kQ, tid, scale_t);
+  fence_proxy_async();
+  mbar_wait(kv_bar, 0);
+  named_barrier_sync(1, kThreads);
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    const int st = j % NS, qb = qb_start + j;
+    const uint32_t q_t = base + L::kQ + st * L::kQBytes;
+    const uint32_t do_t = base + L::kDO + st * L::kQBytes;
+    const float* lse_t = reinterpret_cast<const float*>(sm + L::kLse + st * L::kRowBytes);
+    const float* delta_t = reinterpret_cast<const float*>(sm + L::kDelta + st * L::kRowBytes);
+
+    // S^T = K.(q * scale)^T and dP^T = V.dO^T: both operands K-major, two
+    // groups, so that P is formed while dP^T runs. The accumulators start
+    // from zeros, so no register of the last tile's stays live into this one.
+    float s[QT / 2], dp[QT / 2];
+#pragma unroll
+    for (int i = 0; i < QT / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<QT>(s, kmajor_desc<D>(k_s, kBK, kk), kmajor_desc<D>(q_t, QT, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<QT>(dp, kmajor_desc<D>(v_s, kBK, kk), kmajor_desc<D>(do_t, QT, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(s);
+
+    // P^T = exp(S^T - lse) in base 2, -1e30 where k_pos > q_pos (it
+    // underflows to 0), split into bf16 hi + lo: the S^T accumulator's
+    // column tiles 2kk, 2kk + 1 are the A fragment of k-step kk
+    const bool diag = causal && ki * kBK + kBK - 1 > qb * QT;
+    uint32_t ph[QT / 4], pl[QT / 4];
 #pragma unroll
     for (int nt = 0; nt < NQ; ++nt) {
-      float p[4], lo[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = nt * 8 + 2 * t4 + (i & 1);  // query within the tile
-        const int k_pos = i < 2 ? k_pos0 : k_pos1;
-        const float sv = (causal && k_pos > qb * QT + c) ? -1e30f : s[nt][i];
-        p[i] = expf(sv - lse_s[c]);
-        lo[i] = p[i] - round_to<bf16>(p[i]);
-        ds[i] = p[i] * (dp[nt][i] - delta_s[c]);
+      const int c = nt * 8 + 2 * t4;  // this thread's queries c, c + 1 of the tile
+      const float2 ls = *reinterpret_cast<const float2*>(lse_t + c);
+      const float l0 = ls.x * kLog2e, l1 = ls.y * kLog2e;
+      float x[4] = {s[4 * nt], s[4 * nt + 1], s[4 * nt + 2], s[4 * nt + 3]};
+      if (diag) {
+        const int q_pos = qb * QT + c;
+        if (k_pos0 > q_pos) x[0] = -1e30f;
+        if (k_pos0 > q_pos + 1) x[1] = -1e30f;
+        if (k_pos1 > q_pos) x[2] = -1e30f;
+        if (k_pos1 > q_pos + 1) x[3] = -1e30f;
       }
-      phi[nt][0] = pack_bf16(p[0], p[1]);
-      phi[nt][1] = pack_bf16(p[2], p[3]);
-      plo[nt][0] = pack_bf16(lo[0], lo[1]);
-      plo[nt][1] = pack_bf16(lo[2], lo[3]);
-      dsf[nt][0] = pack_bf16(ds[0], ds[1]);
-      dsf[nt][1] = pack_bf16(ds[2], ds[3]);
+      split_bf16(exp2f(fmaf(x[0], kLog2e, -l0)), exp2f(fmaf(x[1], kLog2e, -l1)), ph[2 * nt],
+                 pl[2 * nt]);
+      split_bf16(exp2f(fmaf(x[2], kLog2e, -l0)), exp2f(fmaf(x[3], kLog2e, -l1)),
+                 ph[2 * nt + 1], pl[2 * nt + 1]);
     }
-    // dV += P^T.dO (hi and lo parts) and dK += dS^T.(q * scale)
+
+    // dV += P^T_hi.dO + P^T_lo.dO: P^T from registers, dO read MN-major
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk) {
-      const uint32_t ah[4] = {phi[2 * kk][0], phi[2 * kk][1], phi[2 * kk + 1][0],
-                              phi[2 * kk + 1][1]};
-      const uint32_t al[4] = {plo[2 * kk][0], plo[2 * kk][1], plo[2 * kk + 1][0],
-                              plo[2 * kk + 1][1]};
-      const uint32_t ad[4] = {dsf[2 * kk][0], dsf[2 * kk][1], dsf[2 * kk + 1][0],
-                              dsf[2 * kk + 1][1]};
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const bf16* orow = dot + (j * 8 + g) * LDT + kk * 16 + 2 * t4;
-        const uint32_t b0 = ld32(orow), b1 = ld32(orow + 8);
-        mma_bf16(dva[j], ah, b0, b1);
-        mma_bf16(dva[j], al, b0, b1);
-        const bf16* qr = qt + (j * 8 + g) * LDT + kk * 16 + 2 * t4;
-        mma_bf16(dka[j], ad, ld32(qr), ld32(qr + 8));
-      }
+      const uint32_t ah[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
+      const uint32_t al[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
+      const uint64_t b = mnmajor_desc<D>(do_t, QT, kk);
+      wgmma_rs<D>(dva, ah, b, 1);
+      wgmma_rs<D>(dva, al, b, 1);
     }
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T and dP^T are done; dV may still run
+    fence_operand(dp);
+
+    // dS^T = P^T * (dP^T - delta), P^T as hi + lo, rounded to bf16
+    uint32_t ds[QT / 4];
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt) {
+      const float2 dl = *reinterpret_cast<const float2*>(delta_t + nt * 8 + 2 * t4);
+      const float2 p0 = join_bf16(ph[2 * nt], pl[2 * nt]);
+      const float2 p1 = join_bf16(ph[2 * nt + 1], pl[2 * nt + 1]);
+      ds[2 * nt] = pack_bf16(p0.x * (dp[4 * nt] - dl.x), p0.y * (dp[4 * nt + 1] - dl.y));
+      ds[2 * nt + 1] =
+          pack_bf16(p1.x * (dp[4 * nt + 2] - dl.x), p1.y * (dp[4 * nt + 3] - dl.y));
+    }
+
+    // dK += dS^T.(q * scale): dS^T from registers, Q read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
+      wgmma_rs<D>(dka, a, mnmajor_desc<D>(q_t, QT, kk), 1);
+    }
+    wgmma_commit();
+
+    // while dV and dK run: wait for the next Q tile and scale it
+    if (j + 1 < n) {
+      const int st1 = (j + 1) % NS;
+      mbar_wait(full + 8 * st1, ((j + 1) / NS) & 1);
+      scale_bf16_tile<L::kQBytes, kThreads>(sm + L::kQ + st1 * L::kQBytes, tid, scale_t);
+    }
+    fence_proxy_async();  // the scaled tile, and this tile's generic reads, before any TMA
+    wgmma_wait<0>();
+    fence_operand(dka);
+    fence_operand(dva);
+    fence_operand(ph);
+    fence_operand(pl);
+    fence_operand(ds);
+
+    // every warp has waited out its products on this stage: hand it back
+    named_barrier_sync(1, kThreads);
+    if (tid == 0 && j + NS < n)
+      load_q_stage<D>(&q_map, &do_map, &lse_map, &delta_map, base, st, qb + NS, bh);
   }
 
   // (q * scale) carried the scale into dS^T.Q already: no second factor
-  const size_t row0 = ((size_t)bh * s_len + k_pos0) * D + 2 * t4;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
-    *reinterpret_cast<uint32_t*>(dk + row0 + j * 8) = pack_bf16(dka[j][0], dka[j][1]);
-    *reinterpret_cast<uint32_t*>(dk + row0 + 8 * D + j * 8) = pack_bf16(dka[j][2], dka[j][3]);
-    *reinterpret_cast<uint32_t*>(dv + row0 + j * 8) = pack_bf16(dva[j][0], dva[j][1]);
-    *reinterpret_cast<uint32_t*>(dv + row0 + 8 * D + j * 8) = pack_bf16(dva[j][2], dva[j][3]);
+    *reinterpret_cast<uint32_t*>(dk0 + j * 8) = pack_bf16(dka[4 * j], dka[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(dk0 + 8 * D + j * 8) = pack_bf16(dka[4 * j + 2], dka[4 * j + 3]);
+    *reinterpret_cast<uint32_t*>(dv0 + j * 8) = pack_bf16(dva[4 * j], dva[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(dv0 + 8 * D + j * 8) = pack_bf16(dva[4 * j + 2], dva[4 * j + 3]);
   }
 }
 
@@ -561,34 +704,48 @@ cudaError_t launch_dq(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_wgmma(const BwdArgs& a) {
+  using L = DkvLayout<D>;
+  if (a.t == 0) {  // no queries: zeros, and no tensor map (the encoder refuses an empty T)
+    const size_t bytes = (size_t)a.bh * a.s * D * sizeof(bf16);
+    const cudaError_t err = cudaMemsetAsync(a.dk, 0, bytes, a.stream);
+    return err != cudaSuccess ? err : cudaMemsetAsync(a.dv, 0, bytes, a.stream);
+  }
+  // the maps hold this call's pointers, so they are encoded per call
+  CUtensorMap q_map, k_map, v_map, do_map, lse_map, delta_map;
+  if (hopper::encode_tile_map<D>(&q_map, a.q, a.t, a.bh, L::kQT) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&k_map, a.k, a.s, a.bh, kBK) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&v_map, a.v, a.s, a.bh, kBK) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&do_map, a.dout, a.t, a.bh, L::kQT) != CUDA_SUCCESS ||
+      hopper::encode_row_map(&lse_map, a.lse, a.t, a.bh, L::kQT) != CUDA_SUCCESS ||
+      hopper::encode_row_map(&delta_map, a.delta, a.t, a.bh, L::kQT) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dkv_wgmma_kernel<D>;
+  const cudaError_t err = allow_smem(kern, L::kSmem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)a.bh * (unsigned)(a.s / kBK), kThreads, L::kSmem, a.stream>>>(
+      q_map, k_map, v_map, do_map, lse_map, delta_map, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.t, a.s, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a) {
-  const unsigned blocks = (unsigned)a.bh * (unsigned)(a.s / kBK);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int QT = dkv_q_tile<D>();
-    const size_t smem = sizeof(bf16) * ((2 * kBK + 2 * QT) * (D + 8) + 2 * D * (QT + 8)) +
-                        sizeof(float) * 2 * QT;
-    auto kern = flash_bwd_dkv_mma_kernel<D>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta, dk, dv, a.t,
-                                               a.s, a.causal, a.scale);
+    return launch_dkv_wgmma<D>(a);
   } else {
     const size_t smem = sizeof(float) * ((2 * kBK + 2 * kBQ) * (D + 1) +
                                          2 * kBK * (kBQ + 1) + 2 * kBQ);
     auto kern = flash_bwd_dkv_fma_kernel<T, D>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta, dk, dv, a.t,
-                                               a.s, a.causal, a.scale);
+    kern<<<(unsigned)a.bh * (unsigned)(a.s / kBK), kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.t, a.s, a.causal, a.scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -606,7 +763,7 @@ cudaError_t dispatch(bool is_dq, int d, const BwdArgs& a) {
 }
 
 int run(bool is_dq, const BwdArgs& a, int d, int dtype) {
-  // no queries: dQ is empty, but dK/dV still launches and writes zeros
+  // no queries: dQ is empty, but dK/dV still writes zeros
   if (a.bh == 0 || (is_dq && a.t == 0)) return cudaSuccess;
   if (a.t % kBQ != 0 || a.s % kBK != 0 || a.s == 0) return cudaErrorInvalidValue;
   if (dtype == kF32) return dispatch<float>(is_dq, d, a);

@@ -181,37 +181,16 @@ template <> struct WgTiles<32> { static constexpr int kBK = 128, kStages = 2; };
 template <> struct WgTiles<64> { static constexpr int kBK = 128, kStages = 2; };
 template <> struct WgTiles<128> { static constexpr int kBK = 64, kStages = 2; };
 
-// Shared-memory plan of the bf16 kernel. Each tile is stored as boxes of
-// kCols columns, box after box; a box row is one swizzle span (kRowBytes).
+// Shared-memory plan of the bf16 kernel: the Q tile, then the K/V ring,
+// each tile laid out as hopper::TileBoxes<D>
 template <int D> struct WgLayout {
   static constexpr int kBK = WgTiles<D>::kBK;
   static constexpr int kStages = WgTiles<D>::kStages;
-  static constexpr int kCols = D < 64 ? D : 64;
-  static constexpr int kRowBytes = kCols * 2;  // 64 B at D = 32, else 128 B
-  static constexpr int kBoxes = D / kCols;
-  static constexpr int kSwizzle = kRowBytes == 128 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kTileBytes = kBK * D * 2;  // one K or V tile
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (kStages + 1);  // + alignment slack
 };
-
-// Descriptor of k-step kk (16 columns) of a K-major [rows, D] tile (Q, K)
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
-  using L = WgLayout<D>;
-  constexpr int kSteps = L::kCols / 16;  // k-steps per box
-  return hopper::wgmma_desc(tile + (kk / kSteps) * rows * L::kRowBytes + (kk % kSteps) * 32, 16,
-                            8 * L::kRowBytes, L::kSwizzle);
-}
-
-// Descriptor of k-step kk (key rows 16kk..16kk+15) of a V tile read
-// MN-major: N = D runs along the rows, box after box
-template <int D> __device__ __forceinline__ uint64_t v_desc(uint32_t tile, int kk) {
-  using L = WgLayout<D>;
-  return hopper::wgmma_desc(tile + kk * 16 * L::kRowBytes, L::kBK * L::kRowBytes,
-                            8 * L::kRowBytes, L::kSwizzle);
-}
 
 // Key tile kb of K and V into one ring stage, completing on its barrier
 template <int D>
@@ -220,12 +199,8 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* k_map, const CUtensor
                                         int bh) {
   using L = WgLayout<D>;
   hopper::mbar_arrive_expect_tx(bar, 2 * L::kTileBytes);
-#pragma unroll
-  for (int b = 0; b < L::kBoxes; ++b) {
-    const uint32_t off = b * L::kBK * L::kRowBytes;
-    hopper::tma_load_3d(k_dst + off, k_map, bar, b * L::kCols, kb * L::kBK, bh);
-    hopper::tma_load_3d(v_dst + off, v_map, bar, b * L::kCols, kb * L::kBK, bh);
-  }
+  hopper::tma_load_tile<D, L::kBK>(k_dst, k_map, bar, kb * L::kBK, bh);
+  hopper::tma_load_tile<D, L::kBK>(v_dst, v_map, bar, kb * L::kBK, bh);
 }
 
 template <int D>
@@ -275,9 +250,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wgmma_kernel(
   __syncthreads();
   if (tid == 0) {
     mbar_arrive_expect_tx(q_bar, L::kQBytes);
-#pragma unroll
-    for (int b = 0; b < L::kBoxes; ++b)
-      tma_load_3d(q_s + b * kBQ * L::kRowBytes, &q_map, q_bar, b * L::kCols, qi * kBQ, bh);
+    tma_load_tile<D, kBQ>(q_s, &q_map, q_bar, qi * kBQ, bh);
     for (int kb = 0; kb < NS && kb < n_kb; ++kb)
       load_kv<D>(&k_map, &v_map, k_s + kb * L::kTileBytes, v_s + kb * L::kTileBytes,
                  full + 8 * kb, kb, bh);
@@ -286,18 +259,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wgmma_kernel(
   // q * scale rounded to bf16, in place (elementwise, so the swizzle does
   // not matter), then fenced so that wgmma reads the scaled tile
   mbar_wait(q_bar, 0);
-  {
-    const float scale_t = round_to<bf16>(scale);
-    uint4* qv = reinterpret_cast<uint4*>(q_tile);
-#pragma unroll
-    for (int i = 0; i < L::kQBytes / 16 / kThreads; ++i) {
-      uint4 u = qv[tid + i * kThreads];
-      bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale_t);
-      qv[tid + i * kThreads] = u;
-    }
-  }
+  scale_bf16_tile<L::kQBytes, kThreads>(q_tile, tid, round_to<bf16>(scale));
   fence_proxy_async();
   named_barrier_sync(1, kThreads);
 
@@ -388,7 +350,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wgmma_kernel(
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
                              pf[2 * kk + 1][1]};
-      wgmma_rs<D>(acc, a, v_desc<D>(v_tile, kk), 1);
+      wgmma_rs<D>(acc, a, mnmajor_desc<D>(v_tile, BK, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -424,14 +386,11 @@ template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                          int t, int s, int causal, float scale, cudaStream_t stream) {
   using L = WgLayout<D>;
-  const CUtensorMapSwizzle swizzle =
-      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   // the maps hold this call's pointers, so they are encoded per call
   CUtensorMap q_map, k_map, v_map;
-  if (hopper::encode_bf16_map_3d(&q_map, q, D, t, bh, L::kCols, kBQ, swizzle) != CUDA_SUCCESS ||
-      hopper::encode_bf16_map_3d(&k_map, k, D, s, bh, L::kCols, L::kBK, swizzle) !=
-          CUDA_SUCCESS ||
-      hopper::encode_bf16_map_3d(&v_map, v, D, s, bh, L::kCols, L::kBK, swizzle) != CUDA_SUCCESS)
+  if (hopper::encode_tile_map<D>(&q_map, q, t, bh, kBQ) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&k_map, k, s, bh, L::kBK) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&v_map, v, s, bh, L::kBK) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   auto kern = flash_fwd_wgmma_kernel<D>;
   cudaError_t err =

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tile loads, the wgmma shared-memory descriptor and products, and the
-// host-side tensor-map encoder. Each device helper wraps the one PTX
-// instruction named in its comment.
+// tile loads, the wgmma shared-memory descriptor and products, the shared
+// layout of bf16 tiles with their K-major and MN-major descriptors, and the
+// host-side tensor-map encoders. Each low-level device helper wraps the one
+// PTX instruction named in its comment.
 //
 // Shared-memory operands of wgmma follow the canonical swizzled layouts
 // (CUTLASS's GmmaDescriptor): a tile whose rows are exactly one swizzle
@@ -132,6 +133,13 @@ template <int N> __device__ __forceinline__ void fence_operand(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for packed A fragments: their registers stay live, unchanged,
+// until the wgmma_wait that covers the products reading them.
+template <int N> __device__ __forceinline__ void fence_operand(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 #define RTT_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define RTT_F16(d, i) RTT_F4(d, i), RTT_F4(d, i + 4), RTT_F4(d, i + 8), RTT_F4(d, i + 12)
 #define RTT_WGMMA_D16(d) RTT_F16(d, 0)
@@ -145,6 +153,17 @@ template <int N> __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 // d[4j + {2,3}] = row 16w + g + 8, the same cols.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <> __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : RTT_WGMMA_D16(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 template <> __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
                                                          int scale_d) {
@@ -226,16 +245,64 @@ template <> __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const 
 #undef RTT_F4
 
 // ---------------------------------------------------------------------------
+// bf16 [rows, D] tiles in shared memory: layout, descriptors, TMA
+// ---------------------------------------------------------------------------
+// A tile is stored as D / kCols boxes of kCols columns, box after box; a
+// box row is one swizzle span (kRowBytes: 64 B at D = 32, else 128 B),
+// written by a TMA load of a map with the same swizzle (encode_tile_map).
+// rows is a multiple of 8 and the tile starts on 1024 B.
+template <int D> struct TileBoxes {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kSwizzle = kRowBytes == 128 ? kSwizzle128B : kSwizzle64B;
+  static constexpr CUtensorMapSwizzle kMapSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+// Descriptor of k-step kk (columns 16kk..16kk+15) of a tile read K-major:
+// the contraction runs along its rows (an A operand, or B = rows^T)
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  using B = TileBoxes<D>;
+  constexpr int kSteps = B::kCols / 16;  // k-steps per box
+  return wgmma_desc(tile + (kk / kSteps) * rows * B::kRowBytes + (kk % kSteps) * 32, 16,
+                    8 * B::kRowBytes, B::kSwizzle);
+}
+
+// Descriptor of k-step kk (rows 16kk..16kk+15) of a tile read MN-major as
+// B (transpose-B): the contraction runs down its rows, N = D along them,
+// box after box
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk) {
+  using B = TileBoxes<D>;
+  return wgmma_desc(tile + kk * 16 * B::kRowBytes, rows * B::kRowBytes, 8 * B::kRowBytes,
+                    B::kSwizzle);
+}
+
+// Rows [row, row + ROWS) of head bh of a [bh, rows, D] map into the tile at
+// dst, one TMA load per box, completing on bar (whose expected bytes the
+// caller has set); a ring stage is refilled by a few of these
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row, int bh) {
+  using B = TileBoxes<D>;
+#pragma unroll
+  for (int b = 0; b < B::kBoxes; ++b)
+    tma_load_3d(dst + b * ROWS * B::kRowBytes, map, bar, b * B::kCols, row, bh);
+}
+
+// ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
-// so that the library needs no -lcuda. A 3-D bf16 map of a contiguous
-// [d2, d1, d0] tensor (d0 innermost), box [1, box1, box0], with the given
-// swizzle; out-of-bounds elements of a box read as zero. Returns
-// CUDA_SUCCESS or the encoder's error.
-inline CUresult encode_bf16_map_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
-                                   uint64_t d2, uint32_t box0, uint32_t box1,
-                                   CUtensorMapSwizzle swizzle) {
+// so that the library needs no -lcuda. A 3-D map of a contiguous
+// [d2, d1, d0] tensor (d0 innermost) of elem_bytes-sized elements, box
+// [1, box1, box0], with the given swizzle; out-of-bounds elements of a box
+// read as zero. Returns CUDA_SUCCESS or the encoder's error.
+inline CUresult encode_map_3d(CUtensorMap* map, CUtensorMapDataType type, uint64_t elem_bytes,
+                              const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+                              uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle) {
   static PFN_cuTensorMapEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -252,12 +319,29 @@ inline CUresult encode_bf16_map_3d(CUtensorMap* map, const void* ptr, uint64_t d
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, of dims 1 and 2
+  const cuuint64_t strides[2] = {d0 * elem_bytes, d0 * d1 * elem_bytes};  // of dims 1 and 2
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A bf16 [bh, rows, D] tensor in tiles of box_rows rows (TileBoxes<D>)
+template <int D>
+inline CUresult encode_tile_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t bh,
+                                uint32_t box_rows) {
+  using B = TileBoxes<D>;
+  return encode_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, D, rows, bh, B::kCols,
+                       box_rows, B::kMapSwizzle);
+}
+
+// An f32 [bh, 1, t] tensor (lse, delta) in runs of box values, unswizzled:
+// element (head h, position p) sits at coordinates (p, h, 0)
+inline CUresult encode_row_map(CUtensorMap* map, const float* ptr, uint64_t t, uint64_t bh,
+                               uint32_t box) {
+  return encode_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, t, bh, 1, box, 1,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

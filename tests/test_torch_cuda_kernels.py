@@ -87,12 +87,17 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d,t,s", [(32, 256, 256), (64, 256, 256), (128, 256, 256),
-                                   (64, 128, 320), (128, 320, 128)])
-def test_flash_backward_kernels_match_plain_version(cuda, dtype, causal, d, t, s):
+@pytest.mark.parametrize("d,t,s,bh", [(32, 256, 256, 8), (64, 256, 256, 8), (128, 256, 256, 8),
+                                      (64, 128, 320, 8), (128, 320, 128, 8),
+                                      (32, 128, 320, 8), (128, 128, 320, 8),
+                                      (64, 64, 64, 8), (128, 64, 192, 8),
+                                      (128, 1024, 1024, 4)])
+def test_flash_backward_kernels_match_plain_version(cuda, dtype, causal, d, t, s, bh):
     """Both kernels against their plain versions; T != S covers keys that
-    no query sees (S > T) and queries past the last key (T > S)."""
-    args = _bwd_inputs(cuda, dtype, 8, t, d, causal, d + 1, s)
+    no query sees (S > T: causal, the key tiles from T on walk no Q tile)
+    and queries past the last key (T > S); T = 64 is a single Q tile, and
+    T = 1024 at head_dim 128 the train shape's walk."""
+    args = _bwd_inputs(cuda, dtype, bh, t, d, causal, d + 1, s)
     before = (F.flash_attention_bwd_dq.launches, F.flash_attention_bwd_dkv.launches)
     got = F.flash_attention_backward(*args, causal)
     want = F.flash_attention_backward_reference(*args, causal)
@@ -104,10 +109,13 @@ def test_flash_backward_kernels_match_plain_version(cuda, dtype, causal, d, t, s
         assert _rel_err(g, w) <= BWD_TOL[dtype], name
 
 
-def test_flash_backward_without_queries(cuda):
-    """T = 0 against S = 64 keys: dK and dV are zeros, as on the CPU."""
-    q = torch.zeros(1, 0, 2, 64, device=cuda, requires_grad=True)
-    k, v = (torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True) for _ in range(2))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_without_queries(cuda, dtype):
+    """T = 0 against S = 64 keys: dK and dV are zeros, as on the CPU (bf16
+    writes them without a tensor map over the empty T)."""
+    q = torch.zeros(1, 0, 2, 64, device=cuda, dtype=dtype, requires_grad=True)
+    k, v = (torch.randn(1, 64, 2, 64, device=cuda).to(dtype).requires_grad_()
+            for _ in range(2))
     F.flash_attention(q, k, v, causal=False).sum().backward()
     torch.cuda.synchronize()
     assert q.grad.shape == q.shape

@@ -130,17 +130,20 @@ def test_grads_match_jax_kernel(name, shape, causal, loss):
                                               (torch.bfloat16, 2**-7, 3e-2)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t,s", [(128, 128), (128, 256)])
-def test_backward_reference_matches_pallas_bwd(dtype, rtol, atol, causal, t, s):
+@pytest.mark.parametrize("d", [32, 128])
+def test_backward_reference_matches_pallas_bwd(dtype, rtol, atol, causal, t, s, d):
     """flash_attention_backward_reference against the Pallas backward
     (_flash_grouped_bwd, interpret mode) on the grouped layout, given the
     same dO, O and lse. f32: sums in another order, atol 1e-5. bf16: both
     round dS to bf16 before dS.K and dS^T.Q, where an f32 difference in
     the last bit can flip one bf16 rounding (2**-8 relative), and dq/dk/dv
     (|x| up to ~8 here) are rounded to bf16: two bf16 ulps of the value
-    (rtol 2**-7) plus atol 3e-2. S > T covers the keys no query sees."""
+    (rtol 2**-7) plus atol 3e-2. S > T covers the keys no query sees.
+    head_dim 128 is the train shape's, where the scale 1/sqrt(128) is not
+    a power of two, so q * scale rounds (a rounding point both keep)."""
     rng = np.random.default_rng(9)
-    qg, do = (rng.standard_normal((3, t, 32), dtype=np.float32) for _ in range(2))
-    kg, vg = (rng.standard_normal((3, s, 32), dtype=np.float32) for _ in range(2))
+    qg, do = (rng.standard_normal((3, t, d), dtype=np.float32) for _ in range(2))
+    kg, vg = (rng.standard_normal((3, s, d), dtype=np.float32) for _ in range(2))
     tq, tk, tv, tdo = (torch.from_numpy(a).to(dtype) for a in (qg, kg, vg, do))
     jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()).astype(jnp.dtype(str(dtype)[6:]))
                        for t in (tq, tk, tv, tdo))
@@ -156,6 +159,27 @@ def test_backward_reference_matches_pallas_bwd(dtype, rtol, atol, causal, t, s):
     # the CPU wrapper is the plain version, through both kernel wrappers
     assert all(torch.equal(a, b) for a, b in zip(
         got, T.flash_attention_backward(tq, tk, tv, tdo, lse, delta, causal)))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dv_from_bf16_hi_lo_split_of_p(causal):
+    """The bf16 dK/dV kernel forms dV = P^T.dO from P_hi = bf16(P) and
+    P_lo = bf16(P - P_hi), two products with f32 sums, where the plain
+    version (as Pallas) takes P in f32. The two agree within 2**-16 of the
+    largest entry of dV; P rounded to bf16 alone (P_hi) does not."""
+    rng = np.random.default_rng(10)
+    qg, kg, vg, do = (torch.from_numpy(rng.standard_normal((4, 256, 128), dtype=np.float32))
+                      .bfloat16() for _ in range(4))
+    _, lse = T.flash_attention_forward(qg, kg, vg, causal)
+    p, _ = T._recompute_p(qg, kg, lse, causal)
+    do32 = do.float()
+    want = p.transpose(1, 2) @ do32  # flash_attention_bwd_dkv_reference's dV, before the cast
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    got = p_hi.transpose(1, 2) @ do32 + p_lo.transpose(1, 2) @ do32
+    bound = 2**-16 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bound
+    assert (p_hi.transpose(1, 2) @ do32 - want).abs().max().item() > bound
 
 
 def test_backward_input_checks():
