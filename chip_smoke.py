@@ -14,9 +14,11 @@ passes or exits non-zero:
    (the backward under its flash and cuDNN backends), as a yardstick; the
    flash forward at the forward cell's and the train cell's shapes and
    where its key tiles end inside the keys; the backward kernels at T = S,
-   causal S > T (key tiles no query sees), T > S and T = 0, and through
-   ``flash_attention``'s autograd (GQA, ragged causal T=100 and T=1023)
-   against the CPU;
+   causal S > T (key tiles no query sees), non-causal S > T (a key tile
+   that ends inside S), T > S and T = 0, and through ``flash_attention``'s
+   autograd (GQA, ragged causal T=100 and T=1023, head_dim 80 and 96
+   padded to 128) against the CPU; the paged kernel at head_dim 80 and at
+   16 query heads per KV head of 128;
 3. runs ``forward`` of ``ModelConfig()`` at B=4, T=2048 (flash launches
    counted from zero), and checks an f32 forward on the card against the
    CPU's plain path;
@@ -178,6 +180,10 @@ def phase_flash():
     flash_case("bf16 GQA causal", 2, 512, 8, 4, 64, True, torch.bfloat16, 3e-2, 6)
     flash_case("bf16 ragged causal T=2000", 1, 2000, 8, 4, 64, True, torch.bfloat16, 3e-2, 7)
     flash_case("bf16 entry() shape hd32", 4, 128, 8, 4, 32, True, torch.bfloat16, 3e-2, 8)
+    # head_dims between the kernels' widths: zero-padded to 128, sliced back
+    flash_case("f32 GQA hd80", 2, 256, 8, 4, 80, True, torch.float32, 1e-4, 9)
+    flash_case("bf16 GQA hd96 ragged causal T=200", 1, 200, 8, 2, 96, True, torch.bfloat16,
+               3e-2, 10)
 
     # the bf16 kernel against its plain version where its 128-key tile ends
     # inside the keys (T = 192; S = 320, no causal offset when T != S) and
@@ -391,6 +397,8 @@ def phase_flash_backward():
             for causal in (True, False):
                 bwd_kernel_case(8, 256, 256, d, causal, dtype, d + int(causal))
             bwd_kernel_case(4, 128, 320, d, True, dtype, d + 2)
+            # every query walks S = 320: dQ's last 128-key tile ends inside S
+            bwd_kernel_case(4, 128, 320, d, False, dtype, d + 4)
             bwd_kernel_case(4, 320, 128, d, False, dtype, d + 3)
         bwd_without_queries(dtype)
     for dtype in (torch.float32, torch.bfloat16):
@@ -400,6 +408,9 @@ def phase_flash_backward():
         wrapper_bwd_case(f"{tag} ragged causal T=100", 1, 100, 4, 2, 64, True, dtype, 33)
         wrapper_bwd_case(f"{tag} ragged causal T=1023 hd128", 1, 1023, 2, 2, 128, True,
                          dtype, 34)
+        # head_dims between the kernels' widths, padded to 128
+        wrapper_bwd_case(f"{tag} GQA 8->2 hd80", 2, 256, 8, 2, 80, True, dtype, 38)
+        wrapper_bwd_case(f"{tag} ragged causal T=100 hd96", 1, 100, 4, 2, 96, True, dtype, 39)
     train = bwd_timing(128, 1024, 128, 35)  # bench.py's train config, B=8 x 16 heads
     bwd_timing(32, 2048, 64, 36)            # ModelConfig() at B=4, T=2048
     return train
@@ -466,6 +477,11 @@ def phase_paged():
         check(max_err(out[0], out[1]) == 0.0, f"paged {tag}: shared pages differ")
         paged_case(f"{tag} hd128 G4", paged_inputs(3, 2, 4, 128, 64, 16, 4, [50, 64, 1],
                                                    dtype, 24), 16, atol)
+        # head_dim 80, and G * D = 16 * 128 over two blocks of 8 query rows
+        paged_case(f"{tag} hd80 G2", paged_inputs(3, 2, 2, 80, 64, 16, 4, [50, 64, 1],
+                                                  dtype, 27), 16, atol)
+        paged_case(f"{tag} hd128 G16", paged_inputs(3, 2, 16, 128, 64, 16, 4, [50, 64, 1],
+                                                    dtype, 28), 16, atol)
     # the large configuration: 256 slots x 512 pages of 16 (8192 positions)
     lens = torch.randint(1, 512 * 16 + 1, (256,), generator=torch.Generator().manual_seed(5))
     big = paged_inputs(256, 4, 2, 64, 256 * 512 + 1, 16, 512, lens.tolist(), bf16, 25)

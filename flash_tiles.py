@@ -2,17 +2,19 @@
 
     python3 flash_tiles.py fwd     # the forward's key-tile rows and K/V ring stages
     python3 flash_tiles.py dkv     # the dK/dV kernel's Q-tile rows and Q/dO ring stages
+    python3 flash_tiles.py dq      # the dQ kernel's key-tile rows and K/V ring stages
 
 Each kernel takes its tiles per head_dim from one struct in its source:
 ``WgTiles<D>`` (``kBK``, ``kStages``) in
-``ray_tpu_torch/csrc/flash_attention_fwd.cu`` and ``DkvTiles<D>`` (``kQT``,
-``kStages``) in ``flash_attention_bwd.cu``. This script builds the source
-as committed and once per alternative below (one ``nvcc`` each, started
-together, into ``ray_tpu_torch/_build/tiles/``), checks every alternative
-against the committed build, and times them in turns at the two training
-shapes (bf16, causal): bh=32, T=2048, D=64 and bh=128, T=1024, D=128. It
-prints the ptxas register and spill lines of each dK/dV build. Needs one
-CUDA card and ``nvcc``; exits 2 without a card.
+``ray_tpu_torch/csrc/flash_attention_fwd.cu``, ``DkvTiles<D>`` (``kQT``,
+``kStages``) and ``DqTiles<D>`` (``kBK``, ``kStages``) in
+``flash_attention_bwd.cu``. This script builds the source as committed and
+once per alternative below (one ``nvcc`` each, started together, into
+``ray_tpu_torch/_build/tiles/``), checks every alternative against the
+committed build, and times them in turns at the two training shapes (bf16,
+causal): bh=32, T=2048, D=64 and bh=128, T=1024, D=128. It prints the
+ptxas register, spill and advisory lines of the kernel's every build.
+Needs one CUDA card and ``nvcc``; exits 2 without a card.
 """
 from __future__ import annotations
 
@@ -34,17 +36,22 @@ from ray_tpu_torch.ops import flash_attention as F  # noqa: E402
 DEV = torch.device("cuda")
 OUT = _cuda.BUILD_DIR / "tiles"
 SHAPES = [(32, 2048, 64), (128, 1024, 128)]  # (bh, T, D)
-# per kernel: source, tile struct and its two fields, the counted flops per
-# live (query, key) pair over D (fwd: 2 products of 2 * D; dkv: 5), and the
-# alternatives (head_dim, first field, ring stages) beside the committed struct
+# per kernel: source, kernel name, tile struct and its two fields, the
+# counted flops per live (query, key) pair over D (fwd: 2 products of 2 * D;
+# dkv: 5; dq: 3), and the alternatives (head_dim, first field, ring stages)
+# beside the committed struct
 KERNELS = {
-    "fwd": dict(source="flash_attention_fwd.cu", struct="WgTiles", fields=("kBK", "kStages"),
-                flops_per_pair=4,
+    "fwd": dict(source="flash_attention_fwd.cu", kernel="flash_fwd_wgmma_kernel",
+                struct="WgTiles", fields=("kBK", "kStages"), flops_per_pair=4,
                 alternatives=[(64, 64, 2), (64, 128, 3), (128, 128, 2), (128, 64, 3)]),
-    "dkv": dict(source="flash_attention_bwd.cu", struct="DkvTiles", fields=("kQT", "kStages"),
-                flops_per_pair=10,
+    "dkv": dict(source="flash_attention_bwd.cu", kernel="flash_bwd_dkv_wgmma_kernel",
+                struct="DkvTiles", fields=("kQT", "kStages"), flops_per_pair=10,
                 alternatives=[(64, 32, 2), (64, 64, 2), (128, 32, 2), (128, 64, 3),
                               (128, 32, 3)]),
+    "dq": dict(source="flash_attention_bwd.cu", kernel="flash_bwd_dq_wgmma_kernel",
+               struct="DqTiles", fields=("kBK", "kStages"), flops_per_pair=6,
+               alternatives=[(64, 64, 2), (64, 128, 2), (64, 128, 3), (128, 64, 3),
+                             (128, 128, 2), (128, 32, 2)]),
 }
 
 
@@ -88,7 +95,7 @@ def fwd_call(lib, q, k, v):
     return (o,)
 
 
-def dkv_inputs(bh, t, d):
+def bwd_inputs(bh, t, d):
     g = torch.Generator(device=DEV).manual_seed(12)
     q, k, v, do = (torch.randn(bh, t, d, generator=g, device=DEV).to(torch.bfloat16)
                    for _ in range(4))
@@ -109,6 +116,22 @@ def dkv_call(lib, q, k, v, do, lse, delta):
     return dk, dv
 
 
+def dq_call(lib, q, k, v, do, lse, delta):
+    fn = lib.ray_flash_attention_bwd_dq
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    bh, t, d = q.shape
+    dq = torch.empty_like(q)
+    err = fn(*(_cuda.ptr(x) for x in (q, k, v, do, lse, delta, dq)), bh, t, t, d, 1,
+             1.0 / d**0.5, _cuda.DTYPE_CODES[torch.bfloat16], _cuda.current_stream())
+    _cuda.check(err, "flash_tiles dq")
+    return (dq,)
+
+
+CALLS = {"fwd": (fwd_inputs, fwd_call), "dkv": (bwd_inputs, dkv_call),
+         "dq": (bwd_inputs, dq_call)}
+
+
 def ptxas_report(log: str, kernel: str):
     """ptxas's lines (registers, spills, advisories) for each instance of
     ``kernel``, from an ``nvcc -Xptxas -v`` log."""
@@ -116,8 +139,9 @@ def ptxas_report(log: str, kernel: str):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             inside = kernel in line
-            if inside:
-                lines.append(line.split("'")[1])
+            if inside:  # the kernel and its head_dim, from the mangled name
+                d = re.search(r"ILi(\d+)EE", line)
+                lines.append(f"{kernel}<{d.group(1) if d else '?'}>")
         elif inside and any(w in line for w in ("registers", "spill", "arning", "Loss")):
             lines.append(line.strip())
     return lines
@@ -153,18 +177,17 @@ def main() -> None:
     for alt in spec["alternatives"]:
         name = "d{}_{}{}_ns{}".format(alt[0], a[1:].lower(), alt[1], alt[2])
         procs[name] = build(spec, name, alt)
-    _cuda.build_all()  # the package's own kernels, for the dK/dV inputs' forward
+    _cuda.build_all()  # the package's own kernels, for the backward inputs' forward
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             print(log)
             sys.exit(f"nvcc failed on {name}")
-        if kind == "dkv":
-            for line in ptxas_report(log, "flash_bwd_dkv_wgmma_kernel"):
-                print(f"ptxas {name}: {line}")
+        for line in ptxas_report(log, spec["kernel"]):
+            print(f"ptxas {name}: {line}")
         libs[name] = ctypes.CDLL(str(OUT / name / "lib.so"))
-    inputs, call = (fwd_inputs, fwd_call) if kind == "fwd" else (dkv_inputs, dkv_call)
+    inputs, call = CALLS[kind]
     for bh, t, d in SHAPES:
         args = inputs(bh, t, d)
         flops = spec["flops_per_pair"] * d * bh * t * (t + 1) / 2

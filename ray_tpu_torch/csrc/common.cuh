@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels: element conversion, 16-byte tile
-// loads into f32 shared memory, in-place scaling of a bf16 tile, and the
-// bf16 tensor-core product (mma.sync m16n8k16) with its fragment helpers.
+// loads into f32 shared memory, bf16 packing and in-place scaling of a
+// bf16 tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,33 +59,6 @@ __device__ __forceinline__ void scale_bf16_tile(void* tile, int tid, float mul) 
     for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * mul);
     v[tid + i * THREADS] = u;
   }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layout of m16n8k16 (PTX ISA): with g = lane / 4, t = lane % 4,
-// A regs hold (row g | g+8, cols 2t..2t+1 | 2t+8..2t+9), B regs (k rows
-// 2t..2t+1 | 2t+8..2t+9, n col g), C regs (rows g | g+8, cols 2t..2t+1).
-// c += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows r0, r0 + 8 and columns k0..k0+15 of a row-major
-// bf16 tile in shared memory with row stride ld (t4 = lane % 4).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* base, int ld,
-                                       int r0, int k0, int t4) {
-  a[0] = ld32(base + r0 * ld + k0 + 2 * t4);
-  a[1] = ld32(base + (r0 + 8) * ld + k0 + 2 * t4);
-  a[2] = ld32(base + r0 * ld + k0 + 8 + 2 * t4);
-  a[3] = ld32(base + (r0 + 8) * ld + k0 + 8 + 2 * t4);
 }
 
 }  // namespace rtt

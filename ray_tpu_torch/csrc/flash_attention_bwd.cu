@@ -37,12 +37,20 @@
 //     to bf16, in place and fenced for the async proxy). A key tile that no
 //     query sees (causal, ki * 64 >= T) writes zeros and issues nothing;
 //     T = 0 is a memset, since a tensor map cannot have an empty dimension.
-//   - bf16 dQ: warp-level tensor-core products (mma.sync m16n8k16, f32
-//     accumulate), 4 warps of 16 rows each. The accumulator of S becomes,
-//     after the elementwise step, the A operand of dS.K in registers (the
-//     FlashAttention-2 layout trick), so P and dS never touch shared
-//     memory; K, which feeds a B operand along its rows, is stored
-//     transposed in shared memory as well.
+//   - bf16 dQ: the forward's block on the same Hopper blocks: one
+//     warpgroup per (bh, 64-row Q tile), heaviest causal tiles first. The
+//     Q and dO tiles arrive once by TMA and stay resident (Q scaled in
+//     place to bf16(q * scale) and fenced for the async proxy), as do each
+//     thread's two lse and delta values and the 64 x D f32 dQ accumulator.
+//     K/V tiles (DqTiles: 64 keys at D = 64/128, 128 at D = 32) stream by
+//     TMA through a ring of mbarrier-completed stages that thread 0 refills
+//     once all four warps are past their products on one (a named
+//     barrier). Three wgmma products a key tile: S = (q * scale).K^T and
+//     dP = dO.V^T read both operands K-major, in two groups, so that P is
+//     formed (and masked on the diagonal tile and past S) while dP runs;
+//     dS = P * (dP - delta) is rounded to bf16 into A fragments (the S
+//     accumulator's layout is the A fragment's) and dQ += dS.K reads the
+//     same K tile MN-major (transpose-B), so nothing is copied transposed.
 //   - f32 (tests and checks): plain f32 FMAs from shared memory, two
 //     threads per row.
 //   - the Pallas rounding points: q * scale rounded to the input dtype, dO
@@ -57,9 +65,9 @@
 //   - masked entries (k_pos > q_pos) take S = -1e30 and underflow to
 //     exactly 0 through exp(S - lse); padded query rows have dO = 0 and
 //     delta = 0, so they add nothing to dK/dV.
-// Not yet done (later work): the dQ kernel on the same blocks (wgmma, TMA
-// ring, K read MN-major in place of its transposed copy); persistent
-// blocks; FlashAttention-2's single pass with atomic dQ.
+// Not yet done (later work): persistent blocks; overlapping one key tile's
+// dS.K with the next tile's S and dP; FlashAttention-2's single pass with
+// atomic dQ.
 #include <type_traits>
 
 #include "common.cuh"
@@ -69,9 +77,10 @@ using namespace rtt;
 
 namespace {
 
-constexpr int kThreads = 128;  // FMA: 2 threads a row; MMA: 16 rows a warp; wgmma: a warpgroup
-constexpr int kBQ = 64;        // Q tile of the dQ kernel (and of the f32 dK/dV kernel)
-constexpr int kBK = 64;        // K tile of both kernels
+constexpr int kThreads = 128;  // FMA: 2 threads a row; wgmma: a warpgroup
+constexpr int kBQ = 64;        // Q tile of the dQ kernels (and of the f32 dK/dV kernel)
+constexpr int kBK = 64;        // K tile of the dK/dV kernels and of the f32 dQ kernel
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // f32 (and any T): FMA kernels
@@ -267,141 +276,199 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels
+// bf16: wgmma kernels (hopper.cuh)
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
-// Copy a [ROWS, D] bf16 tile (global row stride D) into shared memory, row
-// by row (stride LDN) and, if tr is given, transposed (stride LDT); with
-// `scaled`, each element times `mul` rounded to bf16 first.
-template <int D, int ROWS, int LDN, int LDT>
-__device__ __forceinline__ void bf16_tile(bf16* nat, bf16* tr, const bf16* src, int tid,
-                                          float mul, bool scaled) {
-  constexpr int CPR = D / 8;
-  constexpr int CH = ROWS * CPR / kThreads;
-  static_assert((ROWS * CPR) % kThreads == 0, "tile must split evenly");
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int idx = tid + c * kThreads;
-    const int row = idx / CPR, col = (idx % CPR) * 8;
-    uint4 u = *reinterpret_cast<const uint4*>(src + row * D + col);
-    bf16* e = reinterpret_cast<bf16*>(&u);
-    if (scaled) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * mul);
-    }
-    *reinterpret_cast<uint4*>(nat + row * LDN + col) = u;
-    if (tr != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(col + i) * LDT + row] = e[i];
-    }
-  }
+// The bf16 dQ kernel's key-tile rows (the N of S and dP, the contraction
+// of dS.K) and K/V ring stages by head_dim, timed by flash_tiles.py dq at
+// D = 64 and 128 (at D = 64, 128-key tiles take 234 registers and lose to
+// 64-key tiles at 122); D = 32 is not timed and keeps 128-key tiles, whose
+// last tile may end inside S
+template <int D> struct DqTiles;
+template <> struct DqTiles<32> { static constexpr int kBK = 128, kStages = 2; };
+template <> struct DqTiles<64> { static constexpr int kBK = 64, kStages = 3; };
+template <> struct DqTiles<128> { static constexpr int kBK = 64, kStages = 2; };
+
+// Shared-memory plan of the bf16 dQ kernel (offsets from a 1024 B aligned
+// base): the Q and dO tiles, then the ring's K tiles and V tiles, stage
+// after stage, then the barriers (one per stage, then Q/dO's). Tiles are
+// laid out as hopper::TileBoxes<D>.
+template <int D> struct DqLayout {
+  static constexpr int kBK = DqTiles<D>::kBK;
+  static constexpr int kStages = DqTiles<D>::kStages;
+  static constexpr int kQBytes = kBQ * D * 2;   // the Q or dO tile
+  static constexpr int kKVBytes = kBK * D * 2;  // one K or V tile
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kSmem = 1024 + kBar + 8 * (kStages + 1);  // + alignment slack
+  static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0, "TMA destinations stay aligned");
+};
+
+// Key tile kb of K and V into ring stage st, completing on its barrier
+template <int D>
+__device__ __forceinline__ void load_kv_stage(const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                              uint32_t base, int st, int kb, int bh) {
+  using L = DqLayout<D>;
+  const uint32_t bar = base + L::kBar + 8 * st;
+  hopper::mbar_arrive_expect_tx(bar, 2 * L::kKVBytes);
+  hopper::tma_load_tile<D, L::kBK>(base + L::kK + st * L::kKVBytes, k_map, bar, kb * L::kBK, bh);
+  hopper::tma_load_tile<D, L::kBK>(base + L::kV + st * L::kKVBytes, v_map, bar, kb * L::kBK, bh);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int t_len, int s_len, int causal,
-    float scale) {
-  constexpr int LDN = D + 8;    // rows: 16-byte aligned, conflict-free fragments
-  constexpr int LDT = kBK + 8;  // rows of K transposed
-  constexpr int NT = kBK / 8;   // score column tiles
-  constexpr int DT = D / 8;     // dq column tiles
-  constexpr int KS = D / 16;    // k-steps over D
-  static_assert(kBQ == 16 * (kThreads / 32), "one 16-row strip per warp");
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // [bh, T, D] bf16, box [kBQ, kCols]
+    const __grid_constant__ CUtensorMap k_map,   // [bh, S, D] bf16, box [kBK, kCols]
+    const __grid_constant__ CUtensorMap v_map,   // [bh, S, D] bf16, box [kBK, kCols]
+    const __grid_constant__ CUtensorMap do_map,  // [bh, T, D] bf16, box [kBQ, kCols]
+    const float* __restrict__ lse,               // [bh, 1, T]
+    const float* __restrict__ delta,             // [bh, 1, T]
+    bf16* __restrict__ dq, int t_len, int s_len, int causal, float scale) {
+  using namespace hopper;
+  using L = DqLayout<D>;
+  constexpr int BK = L::kBK, NS = L::kStages;
+  constexpr int NT = BK / 8;  // S and dP column tiles (keys)
+  constexpr int DT = D / 8;   // dQ column tiles
+  static_assert(kThreads == 128 && kBQ == 64, "one warpgroup, one wgmma row block of queries");
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LDN] q * scale
-  bf16* dos = qs + kBQ * LDN;                    // [kBQ][LDN]
-  bf16* ks = dos + kBQ * LDN;                    // [kBK][LDN]
-  bf16* vs = ks + kBK * LDN;                     // [kBK][LDN]
-  bf16* kt = vs + kBK * LDN;                     // [D][LDT], K transposed
+  extern __shared__ unsigned char smem_raw[];
+  // tiles start on 1024 B: the swizzle atom is 8 rows of 128 B
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t q_s = base, do_s = base + L::kDO;
+  const uint32_t full = base + L::kBar;  // stage st's barrier at + 8 * st
+  const uint32_t qd_bar = full + 8 * NS;
 
   const int nq = t_len / kBQ;
   const int bh = blockIdx.x / nq;
   const int qi = nq - 1 - (int)(blockIdx.x % nq);  // heaviest causal tiles first
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const size_t q_off = ((size_t)bh * t_len + (size_t)qi * kBQ) * D;
-  const bf16* kbase = k + (size_t)bh * s_len * D;
-  const bf16* vbase = v + (size_t)bh * s_len * D;
-
-  bf16_tile<D, kBQ, LDN, 1>(qs, nullptr, q + q_off, tid, round_to<bf16>(scale), true);
-  bf16_tile<D, kBQ, LDN, 1>(dos, nullptr, dout + q_off, tid, 1.f, false);
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   const int q_pos0 = qi * kBQ + r0, q_pos1 = q_pos0 + 8;
-  const float lse0 = lse[(size_t)bh * t_len + q_pos0], lse1 = lse[(size_t)bh * t_len + q_pos1];
-  const float dl0 = delta[(size_t)bh * t_len + q_pos0], dl1 = delta[(size_t)bh * t_len + q_pos1];
 
-  float acc[DT][4];
+  int n_kb = (s_len + BK - 1) / BK;
+  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / BK + 1);
+
+  // thread 0 owns the barriers and issues every TMA load; ring stage st
+  // holds key tiles kb with kb % NS == st
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) mbar_init(full + 8 * st, 1);
+    mbar_init(qd_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(qd_bar, 2 * L::kQBytes);
+    tma_load_tile<D, kBQ>(q_s, &q_map, qd_bar, qi * kBQ, bh);
+    tma_load_tile<D, kBQ>(do_s, &do_map, qd_bar, qi * kBQ, bh);
+    for (int kb = 0; kb < NS && kb < n_kb; ++kb)
+      load_kv_stage<D>(&k_map, &v_map, base, kb, kb, bh);
+  }
+  // this thread's rows' lse (in base 2) and delta, read while the tiles land
+  const size_t row0 = (size_t)bh * t_len + q_pos0;
+  const float l0 = lse[row0] * kLog2e, l1 = lse[row0 + 8] * kLog2e;
+  const float dl0 = delta[row0], dl1 = delta[row0 + 8];
+
+  // q * scale rounded to bf16, in place, fenced so that wgmma reads the
+  // scaled tile
+  mbar_wait(qd_bar, 0);
+  scale_bf16_tile<L::kQBytes, kThreads>(sm, tid, round_to<bf16>(scale));
+  fence_proxy_async();
+  named_barrier_sync(1, kThreads);
+
+  float acc[D / 2];
 #pragma unroll
-  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  int n_kb = s_len / kBK;
-  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / kBK + 1);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   for (int kb = 0; kb < n_kb; ++kb) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    bf16_tile<D, kBK, LDN, LDT>(ks, kt, kbase + (size_t)kb * kBK * D, tid, 1.f, false);
-    bf16_tile<D, kBK, LDN, 1>(vs, nullptr, vbase + (size_t)kb * kBK * D, tid, 1.f, false);
-    __syncthreads();
+    const int st = kb % NS;
+    const uint32_t k_t = base + L::kK + st * L::kKVBytes;
+    const uint32_t v_t = base + L::kV + st * L::kKVBytes;
+    mbar_wait(full + 8 * st, (kb / NS) & 1);
+    __syncwarp();
 
-    // S = (q * scale).K^T and dP = dO.V^T for this warp's 16 rows x 64 keys
-    float s[NT][4], dp[NT][4];
+    // S = (q * scale).K^T and dP = dO.V^T: both operands K-major, two
+    // groups, so that P is formed while dP runs. The accumulators start
+    // from zeros, so no register of the last tile's stays live into this one.
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(s, kmajor_desc<D>(q_s, kBQ, kk), kmajor_desc<D>(k_t, BK, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(dp, kmajor_desc<D>(do_s, kBQ, kk), kmajor_desc<D>(v_t, BK, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(s);
+
+    // P = exp(S - lse) in base 2, in place; -1e30 (it underflows to 0) for
+    // the causal future and for keys past S (a box that runs past the
+    // head's last row is zero-filled)
+    const bool edge = (causal && kb * BK + BK - 1 > qi * kBQ) || kb * BK + BK > s_len;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, qs, LDN, r0, kk * 16, t4);
-      load_a(ao, dos, LDN, r0, kk * 16, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kr = ks + (nt * 8 + g) * LDN + kk * 16 + 2 * t4;
-        const bf16* vr = vs + (nt * 8 + g) * LDN + kk * 16 + 2 * t4;
-        mma_bf16(s[nt], aq, ld32(kr), ld32(kr + 8));
-        mma_bf16(dp[nt], ao, ld32(vr), ld32(vr + 8));
+      for (int e = 0; e < 2; ++e) {
+        float x0 = s[4 * nt + e], x1 = s[4 * nt + 2 + e];
+        if (edge) {
+          const int k_pos = kb * BK + nt * 8 + 2 * t4 + e;
+          const bool past = k_pos >= s_len;
+          if (past || (causal && k_pos > q_pos0)) x0 = -1e30f;
+          if (past || (causal && k_pos > q_pos1)) x1 = -1e30f;
+        }
+        s[4 * nt + e] = exp2f(fmaf(x0, kLog2e, -l0));
+        s[4 * nt + 2 + e] = exp2f(fmaf(x1, kLog2e, -l1));
       }
-    }
-    // dS = P * (dP - delta), P = exp(S - lse), packed as A-fragment halves
-    uint32_t dsf[NT][2];
+    wgmma_wait<0>();
+    fence_operand(dp);
+
+    // dS = P * (dP - delta), rounded to bf16: the accumulator's column
+    // tiles 2kk, 2kk + 1 are the A fragment of k-step kk
+    uint32_t ds[BK / 4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k_pos = kb * kBK + nt * 8 + 2 * t4 + (i & 1);
-        const int q_pos = i < 2 ? q_pos0 : q_pos1;
-        const float sv = (causal && k_pos > q_pos) ? -1e30f : s[nt][i];
-        const float p = expf(sv - (i < 2 ? lse0 : lse1));
-        ds[i] = p * (dp[nt][i] - (i < 2 ? dl0 : dl1));
-      }
-      dsf[nt][0] = pack_bf16(ds[0], ds[1]);
-      dsf[nt][1] = pack_bf16(ds[2], ds[3]);
+      ds[2 * nt] =
+          pack_bf16(s[4 * nt] * (dp[4 * nt] - dl0), s[4 * nt + 1] * (dp[4 * nt + 1] - dl0));
+      ds[2 * nt + 1] =
+          pack_bf16(s[4 * nt + 2] * (dp[4 * nt + 2] - dl1), s[4 * nt + 3] * (dp[4 * nt + 3] - dl1));
     }
-    // dQ += dS.K: the dS accumulator of column tiles 2kk, 2kk+1 is the A
-    // fragment of k-step kk
+
+    // dQ += dS.K: dS from registers, K read MN-major (transpose-B) from the
+    // same tile S read K-major
+    fence_operand(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {dsf[2 * kk][0], dsf[2 * kk][1], dsf[2 * kk + 1][0],
-                             dsf[2 * kk + 1][1]};
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const bf16* kr = kt + (j * 8 + g) * LDT + kk * 16 + 2 * t4;
-        mma_bf16(acc[j], a, ld32(kr), ld32(kr + 8));
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3]};
+      wgmma_rs<D>(acc, a, mnmajor_desc<D>(k_t, BK, kk), 1);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    fence_operand(ds);
+
+    // every warp has waited out its products on this stage: hand it back
+    named_barrier_sync(1, kThreads);
+    if (tid == 0 && kb + NS < n_kb) load_kv_stage<D>(&k_map, &v_map, base, st, kb + NS, bh);
   }
 
-  bf16* o0 = dq + ((size_t)bh * t_len + q_pos0) * D + 2 * t4;
+  bf16* o0 = dq + row0 * D + 2 * t4;
   bf16* o1 = o0 + 8 * D;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
-    *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
-    *reinterpret_cast<uint32_t*>(o1 + j * 8) = pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
+    *reinterpret_cast<uint32_t*>(o0 + j * 8) =
+        pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(o1 + j * 8) =
+        pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
   }
 }
 
@@ -483,7 +550,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_wgmma_kernel(
   constexpr int QT = L::kQT, NS = L::kStages;
   constexpr int NQ = QT / 8;  // S^T column tiles (queries)
   constexpr int DT = D / 8;   // dK/dV column tiles
-  constexpr float kLog2e = 1.4426950408889634f;
   static_assert(kThreads == 128 && kBK == 64, "one warpgroup, one wgmma row block of keys");
   static_assert(NS >= 2, "the next Q tile is scaled while this one is in use");
 
@@ -678,30 +744,40 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <int D>
+cudaError_t launch_dq_wgmma(const BwdArgs& a) {
+  using L = DqLayout<D>;
+  // the maps hold this call's pointers, so they are encoded per call
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if (hopper::encode_tile_map<D>(&q_map, a.q, a.t, a.bh, kBQ) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&k_map, a.k, a.s, a.bh, L::kBK) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&v_map, a.v, a.s, a.bh, L::kBK) != CUDA_SUCCESS ||
+      hopper::encode_tile_map<D>(&do_map, a.dout, a.t, a.bh, kBQ) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dq_wgmma_kernel<D>;
+  const cudaError_t err = allow_smem(kern, L::kSmem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)a.bh * (unsigned)(a.t / kBQ), kThreads, L::kSmem, a.stream>>>(
+      q_map, k_map, v_map, do_map, a.lse, a.delta, static_cast<bf16*>(a.dq), a.t, a.s, a.causal,
+      a.scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a) {
-  const unsigned blocks = (unsigned)a.bh * (unsigned)(a.t / kBQ);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  T* dq = static_cast<T*>(a.dq);
   if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = sizeof(bf16) * ((2 * kBQ + 2 * kBK) * (D + 8) + D * (kBK + 8));
-    auto kern = flash_bwd_dq_mma_kernel<D>;
-    cudaError_t err = allow_smem(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta, dq, a.t, a.s,
-                                               a.causal, a.scale);
+    return launch_dq_wgmma<D>(a);
   } else {
     const size_t smem = sizeof(float) * ((2 * kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1));
     auto kern = flash_bwd_dq_fma_kernel<T, D>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, a.stream>>>(q, k, v, dout, a.lse, a.delta, dq, a.t, a.s,
-                                               a.causal, a.scale);
+    kern<<<(unsigned)a.bh * (unsigned)(a.t / kBQ), kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.t, a.s, a.causal,
+        a.scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <int D>

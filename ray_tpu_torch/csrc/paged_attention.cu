@@ -8,8 +8,11 @@
 // Bound on the H100: memory bandwidth. Each (slot, kv head) reads
 // 2 * len * D * bytes of K/V and does ~4 * G * len * D flops, far below the
 // card's ~295 flops per byte. Design for that:
-//   - one block per (slot, kv head); the G query rows of the head share
-//     every K/V byte the block reads;
+//   - one block per (slot, kv head, chunk of at most 1024 / D of the
+//     head's G query rows); the rows of a chunk share every K/V byte the
+//     block reads, and a head with more rows than that (G * D > 1024)
+//     re-reads its K/V once per further chunk;
+//   - head_dim is a template argument: every multiple of 16 up to 128;
 //   - 64 tokens (several pages) per iteration, fetched with coalesced
 //     16-byte loads that are all issued before the first use, so each
 //     block keeps 8-16 KB in flight;
@@ -32,7 +35,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;     // tokens per iteration (two per lane in step 3)
-constexpr int kMaxPairs = 8;  // (g, d) outputs per thread: G * D <= 1024
+constexpr int kMaxPairs = 8;  // (g, d) outputs per thread: a block's rows * D <= 1024
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
@@ -42,13 +45,17 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const int* __restrict__ tables,   // [B, P_max]
     const int* __restrict__ lengths,  // [B]
     T* __restrict__ out,              // [B, KH, G, D]
-    int kh, int g, int n_pages, int page, int p_max, float scale) {
+    int kh, int g_all, int gpb, int n_pages, int page, int p_max, float scale) {
   constexpr int LD = D + 1;  // padded row: conflict-free column reads
   constexpr int VN = Vec<T>::N;
   constexpr int CPR = D / VN;                 // 16-byte chunks per row
   constexpr int CH = kTile * CPR / kThreads;  // chunks per thread per tensor
   static_assert(kTile == 64, "step 3 gives each lane two tokens");
   static_assert((kTile * CPR) % kThreads == 0, "tile must split evenly");
+
+  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int g0 = blockIdx.z * gpb;       // this block's first query row of the head
+  const int g = min(gpb, g_all - g0);    // and its number of rows
 
   extern __shared__ float sm[];
   float* ks = sm;               // [kTile][LD]
@@ -59,13 +66,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float* l_s = m_s + g;         // [g] running sum
   float* a_s = l_s + g;         // [g] this tile's rescale factor
 
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int length = lengths[b];
   const int live = min(p_max, (length + page - 1) / page);
   const int n_valid = min(length, live * page);
   const float scale_t = round_to<T>(scale);
 
-  const T* qb = q + ((size_t)b * kh + h) * g * D;
+  const T* qb = q + (((size_t)b * kh + h) * g_all + g0) * D;
   for (int i = tid; i < g * D; i += kThreads) qs[i] = round_to<T>(to_f(qb[i]) * scale_t);
   for (int i = tid; i < g; i += kThreads) {
     m_s[i] = -INFINITY;
@@ -158,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     __syncthreads();
   }
 
-  T* ob = out + ((size_t)b * kh + h) * g * D;
+  T* ob = out + (((size_t)b * kh + h) * g_all + g0) * D;
 #pragma unroll
   for (int j = 0; j < kMaxPairs; ++j) {
     const int i = tid + j * kThreads;
@@ -170,14 +176,15 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
                    const int* lengths, void* out, int b, int kh, int g, int n_pages,
                    int page, int p_max, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kTile * (D + 1) + g * D + g * kTile + 3 * g);
+  const int gpb = min(g, kThreads * kMaxPairs / D);  // query rows per block
+  const size_t smem = sizeof(float) * (2 * kTile * (D + 1) + gpb * D + gpb * kTile + 3 * gpb);
   auto kern = paged_decode_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(b, kh), kThreads, smem, stream>>>(
+  kern<<<dim3(b, kh, (g + gpb - 1) / gpb), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), tables,
-      lengths, static_cast<T*>(out), kh, g, n_pages, page, p_max, scale);
+      lengths, static_cast<T*>(out), kh, g, gpb, n_pages, page, p_max, scale);
   return cudaGetLastError();
 }
 
@@ -185,32 +192,38 @@ template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const int* tables,
                        const int* lengths, void* out, int b, int kh, int g, int n_pages,
                        int page, int p_max, float scale, cudaStream_t stream) {
+#define RTT_PAGED_D(D)                                                                        \
+  case D:                                                                                     \
+    return launch<T, D>(q, k, v, tables, lengths, out, b, kh, g, n_pages, page, p_max, scale, \
+                        stream);
   switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, tables, lengths, out, b, kh, g, n_pages, page, p_max,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, tables, lengths, out, b, kh, g, n_pages, page, p_max,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, tables, lengths, out, b, kh, g, n_pages, page, p_max,
-                            scale, stream);
+    RTT_PAGED_D(16)
+    RTT_PAGED_D(32)
+    RTT_PAGED_D(48)
+    RTT_PAGED_D(64)
+    RTT_PAGED_D(80)
+    RTT_PAGED_D(96)
+    RTT_PAGED_D(112)
+    RTT_PAGED_D(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef RTT_PAGED_D
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success). The caller allocates
-// `out` and checks shapes, dtypes, contiguity and 16-byte alignment.
+// Returns the cudaError_t of the launch (0 = success; cudaErrorInvalidValue
+// for a head_dim that is not a multiple of 16 up to 128). The caller
+// allocates `out` and checks shapes, dtypes, contiguity and 16-byte
+// alignment.
 extern "C" int ray_paged_attention_decode(const void* q, const void* k_pages,
                                           const void* v_pages, const void* tables,
                                           const void* lengths, void* out, int b, int kh, int g,
                                           int d, int n_pages, int page, int p_max, float scale,
                                           int dtype, void* stream) {
-  if (b == 0) return cudaSuccess;
-  if (page < 1 || g * d > kThreads * kMaxPairs) return cudaErrorInvalidValue;
+  if (b == 0 || g == 0) return cudaSuccess;
+  if (page < 1) return cudaErrorInvalidValue;
   const int* tbl = static_cast<const int*>(tables);
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -188,8 +188,11 @@ class ContinuousBatchingEngine:
         kh, hd = cfg.n_kv_heads, cfg.head_dim
         groups = cfg.n_heads // kh
         params = self.params
-        pos = self.positions
         active = self.active_mask
+        # an inactive slot keeps the position it finished at, which can be
+        # one past the page cap and the rope table: it runs at position 0
+        # (its tokens are dropped and its KV write goes to page 0)
+        pos = torch.where(active, self.positions, 0)
         h = params["embed"][self.cur_tokens].to(cfg.dtype)  # [B, D]
         cos, sin = self._cos[pos][:, None, :], self._sin[pos][:, None, :]
         page_ids = self.block_tables.gather(1, (pos // page)[:, None])[:, 0].long()

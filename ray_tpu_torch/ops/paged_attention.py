@@ -6,9 +6,12 @@ query token attends over its paged KV cache through a block table.
 
 ``paged_attention_decode`` launches ``csrc/paged_attention.cu`` for CUDA
 tensors (the kernel that replaces the Pallas ``_paged_kernel``, see the
-source note there: memory bound, one block per (slot, kv head), the
-block-table row read from device memory) and takes
+source note there: memory bound, one block per (slot, kv head, chunk of
+query rows), the block-table row read from device memory) and takes
 ``paged_attention_reference``, the gather formulation, for CPU tensors.
+The kernel takes every head_dim that is a multiple of 16 up to 128 and any
+number of query heads per KV head; other head_dims raise on CUDA (the
+paged pool cannot be padded per call).
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ import torch
 from .. import _cuda
 
 SOURCE = "paged_attention.cu"
-_HEAD_DIMS = (32, 64, 128)
-_MAX_GROUP_ELEMS = 1024  # G * D per block, csrc/paged_attention.cu kMaxPairs
+# the kernel's head_dim instances (csrc/paged_attention.cu dispatch_d)
+_HEAD_DIMS = tuple(range(16, 129, 16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,7 +53,7 @@ def _check_inputs(q, k_pages, v_pages, block_tables, lengths, page_size):
             f"paged_attention_decode: q [B,KH,G,D] and pools [KH,N,page,D], got "
             f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}"
         )
-    b, kh, g, d = q.shape
+    b, kh, _, d = q.shape
     if (k_pages.shape[0], k_pages.shape[2], k_pages.shape[3]) != (kh, page_size, d):
         raise ValueError(
             f"paged_attention_decode: pool {tuple(k_pages.shape)} does not match "
@@ -58,10 +61,10 @@ def _check_inputs(q, k_pages, v_pages, block_tables, lengths, page_size):
         )
     if block_tables.dim() != 2 or block_tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_attention_decode: block_tables [B,P_max], lengths [B]")
-    if d not in _HEAD_DIMS or g * d > _MAX_GROUP_ELEMS:
+    if d not in _HEAD_DIMS:
         raise ValueError(
-            f"paged_attention_decode kernel takes head_dim in {_HEAD_DIMS} and "
-            f"G*D <= {_MAX_GROUP_ELEMS}, got G={g}, D={d}"
+            f"paged_attention_decode kernel takes a head_dim that is a multiple of 16 "
+            f"up to 128, got {d}"
         )
     for t in tensors:
         if not t.is_contiguous():

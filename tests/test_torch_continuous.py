@@ -157,6 +157,35 @@ def test_submit_refusals(small):
         te.submit(list(range(1, 80)), GenerationConfig())
 
 
+def test_slot_finishing_at_the_page_cap():
+    """A slot whose last position reaches the page cap (max_seq_len 64 = 4
+    pages of 16) finishes, and the next decode step runs with it inactive
+    at a stale position one past the rope table and the block table: both
+    streams stay token-exact against the JAX engine (25 and 40 tokens, 39
+    steps)."""
+    cfg = dict(vocab_size=256, d_model=64, n_layers=1, n_heads=2, n_kv_heads=1, d_ff=128,
+               max_seq_len=64)
+    cj = J.ModelConfig(dtype=jnp.float32, **cfg)
+    ct = T.ModelConfig(dtype=torch.float32, **cfg)
+    pj = J.init_params(cj, jax.random.PRNGKey(11))
+    pt = T.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, 256, size=n).tolist() for n in (40, 5)]
+    runs = []
+    for eng, gen in ((JEngine(cj, pj, max_batch=2, page_size=16, n_pages=16), JGen),
+                     (ContinuousBatchingEngine(ct, pt, max_batch=2, page_size=16, n_pages=16,
+                                               device="cpu"), GenerationConfig)):
+        ids = [eng.submit(p, gen(max_new_tokens=n)) for p, n in zip(prompts, (100, 40))]
+        steps = 0
+        while eng.pending():
+            eng.step()
+            steps += 1
+        runs.append(([eng.results[i] for i in ids], steps))
+    (want, want_steps), (got, got_steps) = runs
+    assert [len(o) for o in want] == [25, 40] and want_steps == 39
+    assert got == want and got_steps == want_steps
+
+
 def test_pool_double_free_checks(small):
     pool = PagedKVPool(small[1], n_pages=6, page=8, device=torch.device("cpu"))
     pages = pool.alloc(3)

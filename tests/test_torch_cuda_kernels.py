@@ -122,21 +122,33 @@ def test_flash_backward_without_queries(cuda, dtype):
     assert torch.count_nonzero(k.grad) == 0 and torch.count_nonzero(v.grad) == 0
 
 
-def test_flash_backward_through_the_wrapper(cuda):
+@pytest.mark.parametrize("d,dtype", [(64, torch.float32), (80, torch.float32),
+                                     (96, torch.float32), (80, torch.bfloat16),
+                                     (96, torch.bfloat16)])
+def test_flash_backward_through_the_wrapper(cuda, d, dtype):
     """GQA and ragged causal T=100 through flash_attention's autograd on the
-    card (kernels) against the same wrapper on the CPU (plain versions)."""
+    card (kernels) against the same wrapper on the CPU (plain versions);
+    head_dim 80 and 96 are padded to the kernels' 128 and sliced back."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    q = torch.randn(1, 100, 8, 64, generator=g, device=cuda)
-    k = torch.randn(1, 100, 2, 64, generator=g, device=cuda)
-    v = torch.randn(1, 100, 2, 64, generator=g, device=cuda)
-    do = torch.randn(1, 100, 8, 64, generator=g, device=cuda)
-    grads = []
+    q = torch.randn(1, 100, 8, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(1, 100, 2, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, 100, 2, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(1, 100, 8, d, generator=g, device=cuda).to(dtype)
+    grads, outs = [], []
+    before = (F.flash_attention_forward.launches, F.flash_attention_bwd_dq.launches,
+              F.flash_attention_bwd_dkv.launches)
     for dev in (cuda, "cpu"):
         xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
-        F.flash_attention(*xs, causal=True).backward(do.to(dev))
+        out = F.flash_attention(*xs, causal=True)
+        out.backward(do.to(dev))
+        outs.append(out.detach().cpu())
         grads.append([x.grad.cpu() for x in xs])
+    assert (F.flash_attention_forward.launches, F.flash_attention_bwd_dq.launches,
+            F.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    assert outs[0].shape == q.shape
+    assert _max_err(outs[0], outs[1]) <= (1e-4 if dtype == torch.float32 else 3e-2)
     for a, b in zip(*grads):
-        assert _rel_err(a, b) <= 1e-4
+        assert a.dtype == dtype and _rel_err(a, b) <= BWD_TOL[dtype]
 
 
 def _paged_args(cuda, dtype, b, kh, g, d, n_pages, page, p_max, lengths, seed=0):
@@ -153,9 +165,13 @@ def _paged_args(cuda, dtype, b, kh, g, d, n_pages, page, p_max, lengths, seed=0)
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize(
     "g,d,page,lengths",
-    [(2, 64, 16, [1, 16, 77, 128]), (4, 32, 8, [5, 17, 32, 1]), (2, 128, 5, [3, 40, 39, 1])],
+    [(2, 64, 16, [1, 16, 77, 128]), (4, 32, 8, [5, 17, 32, 1]), (2, 128, 5, [3, 40, 39, 1]),
+     (2, 80, 16, [1, 16, 77, 128]), (4, 96, 8, [5, 17, 32, 1]), (2, 16, 16, [3, 40, 39, 1]),
+     (16, 128, 16, [1, 16, 77, 128]), (12, 112, 8, [5, 17, 32, 1])],
 )
 def test_paged_kernel_matches_plain_version(cuda, dtype, atol, g, d, page, lengths):
+    """Every head_dim that is a multiple of 16 up to 128; G * D > 1024 (16 x
+    128, 12 x 112) splits a head's query rows over blocks."""
     args = _paged_args(cuda, dtype, 4, 4, g, d, 64, page, 128 // page + 1, lengths)
     before = P.paged_attention_decode.launches
     out = P.paged_attention_decode(*args, page_size=page)

@@ -51,10 +51,11 @@ def test_page_sharing_between_slots():
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("page,d,g", [(16, 64, 2), (4, 32, 4)])
+@pytest.mark.parametrize("page,d,g", [(16, 64, 2), (4, 32, 4), (16, 80, 2), (8, 128, 16)])
 def test_engine_geometries(page, d, g):
     # the flagship's decode geometry (page 16, hd 64, 2 query heads per KV
-    # head) and a small-page one
+    # head), a small-page one, head_dim 80 and G * D = 16 * 128 (which the
+    # kernel splits over two blocks of 8 query rows)
     q, kp, vp, tables, _ = _setup(b=3, kh=2, g=g, d=d, n_pages=24, page=page, p_max=6,
                                   seed=11)
     want, got = both(q, kp, vp, tables, [page * 6, 1, page * 3 + 1], page)
@@ -86,10 +87,20 @@ def test_kernel_input_checks(bad):
         tables = tables.long()
     elif bad == "pool_page":
         page = 8
-    elif bad == "head_dim":
-        q, pool = torch.zeros(2, 2, 2, 16), torch.zeros(2, 8, 16, 16)
+    elif bad == "head_dim":  # not a multiple of 16
+        q, pool = torch.zeros(2, 2, 2, 40), torch.zeros(2, 8, 16, 40)
     else:
         q, pool = q.half(), pool.half()
     with pytest.raises((ValueError, TypeError)):
         T._check_inputs(q, pool, pool, tables, lengths, page)
 
+
+
+@pytest.mark.parametrize("g,d", [(2, 16), (2, 80), (4, 112), (16, 128), (64, 16)])
+def test_kernel_takes_head_widths(g, d):
+    """Every head_dim that is a multiple of 16 up to 128, at any G (the
+    kernel splits G * D > 1024 over blocks)."""
+    q = torch.zeros(2, 2, g, d)
+    pool = torch.zeros(2, 8, 16, d)
+    T._check_inputs(q, pool, pool, torch.zeros(2, 4, dtype=torch.int32),
+                    torch.ones(2, dtype=torch.int32), 16)
