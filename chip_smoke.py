@@ -17,8 +17,13 @@ passes or exits non-zero:
    causal S > T (key tiles no query sees), non-causal S > T (a key tile
    that ends inside S), T > S and T = 0, and through ``flash_attention``'s
    autograd (GQA, ragged causal T=100 and T=1023, head_dim 80 and 96
-   padded to 128) against the CPU; the paged kernel at head_dim 80 and at
-   16 query heads per KV head of 128;
+   padded to 128, 160 padded to 256, and 256) against the CPU; head_dim 256
+   timed beside SDPA (bh=16, T=1024, causal); the paged kernel at head_dims
+   8, 12, 72, 80 and 256, at 8 and 16 query heads per KV head, with one
+   slot 40 times longer than the rest (split over blocks; two launches
+   bit-equal), and timed at B=256, P_max=512 and at the engine's decode
+   shapes, device time (torch.profiler's kernel rows) apart from
+   host+device time per wrapper call;
 3. runs ``forward`` of ``ModelConfig()`` at B=4, T=2048 (flash launches
    counted from zero), and checks an f32 forward on the card against the
    CPU's plain path;
@@ -67,6 +72,7 @@ from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_reference,
 )
 from ray_tpu_torch.ops.layers import attention_reference  # noqa: E402
+from ray_tpu_torch.ops import paged_attention as paged_ops  # noqa: E402
 from ray_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention_decode,
     paged_attention_reference,
@@ -88,7 +94,9 @@ def check(ok: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time per call of ``fn`` over ``iters`` back-to-back calls,
+    between CUDA events: the larger of the host's and the device's pace,
+    so for a short kernel behind a Python wrapper it is host+device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -100,6 +108,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, marker: str, iters: int = 20) -> float:
+    """Device time per call of the kernels whose name holds ``marker``, as
+    torch.profiler's kernel rows give it over ``iters`` calls of ``fn``: the
+    kernels' own duration on the card, with no host time and no gap between
+    launches. Fails if the trace shows no such kernel."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if marker in e.key and str(e.device_type).endswith("CUDA"))
+    check(us > 0, f"no device time for kernels named *{marker}* in the trace")
+    return us / iters / 1e3
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: torch.dtype):
@@ -184,6 +211,12 @@ def phase_flash():
     flash_case("f32 GQA hd80", 2, 256, 8, 4, 80, True, torch.float32, 1e-4, 9)
     flash_case("bf16 GQA hd96 ragged causal T=200", 1, 200, 8, 2, 96, True, torch.bfloat16,
                3e-2, 10)
+    # head_dim 256 (the FMA kernels in both dtypes), and 160 padded to 256
+    flash_case("f32 GQA hd256", 1, 256, 4, 2, 256, True, torch.float32, 1e-4, 12)
+    flash_case("bf16 hd256 non-causal", 1, 192, 4, 4, 256, False, torch.bfloat16, 3e-2, 13)
+    flash_case("f32 GQA hd160 ragged causal T=100", 1, 100, 4, 2, 160, True, torch.float32,
+               1e-4, 14)
+    flash_case("bf16 GQA hd160", 1, 256, 4, 2, 160, True, torch.bfloat16, 3e-2, 15)
 
     # the bf16 kernel against its plain version where its 128-key tile ends
     # inside the keys (T = 192; S = 320, no causal offset when T != S) and
@@ -198,6 +231,7 @@ def phase_flash():
         ("hd32 T=128 S=320 causal", 4, 128, 320, 32, True),
         ("hd128 T=192 causal", 4, 192, 192, 128, True),
         ("hd128 T=128 S=320 non-causal", 4, 128, 320, 128, False),
+        ("hd256 T=128 S=320 causal", 4, 128, 320, 256, True),
     ):
         g = gen(t + s + d + int(causal))
         qg = torch.randn(bh, t, d, generator=g, device=DEV).to(torch.bfloat16)
@@ -217,7 +251,8 @@ def phase_flash():
     rows = {}
     for key, bh, t, hd, causal in (("fwd", 32, 2048, 64, True),
                                    ("fwd non-causal", 32, 2048, 64, False),
-                                   ("train", 128, 1024, 128, True)):
+                                   ("train", 128, 1024, 128, True),
+                                   ("hd256", 16, 1024, 256, True)):
         g = gen(11)
         qg, kg, vg = (torch.randn(bh, t, hd, generator=g, device=DEV).to(torch.bfloat16)
                       for _ in range(3))
@@ -400,6 +435,9 @@ def phase_flash_backward():
             # every query walks S = 320: dQ's last 128-key tile ends inside S
             bwd_kernel_case(4, 128, 320, d, False, dtype, d + 4)
             bwd_kernel_case(4, 320, 128, d, False, dtype, d + 3)
+        # head_dim 256: the FMA kernels, with 32-row walked tiles
+        bwd_kernel_case(4, 256, 256, 256, True, dtype, 256)
+        bwd_kernel_case(4, 128, 320, 256, False, dtype, 257)
         bwd_without_queries(dtype)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -411,8 +449,12 @@ def phase_flash_backward():
         # head_dims between the kernels' widths, padded to 128
         wrapper_bwd_case(f"{tag} GQA 8->2 hd80", 2, 256, 8, 2, 80, True, dtype, 38)
         wrapper_bwd_case(f"{tag} ragged causal T=100 hd96", 1, 100, 4, 2, 96, True, dtype, 39)
+        # head_dim 160 padded to 256, and 256 itself
+        wrapper_bwd_case(f"{tag} GQA 4->2 hd160", 1, 256, 4, 2, 160, True, dtype, 40)
+        wrapper_bwd_case(f"{tag} ragged causal T=100 hd256", 1, 100, 2, 2, 256, True, dtype, 41)
     train = bwd_timing(128, 1024, 128, 35)  # bench.py's train config, B=8 x 16 heads
     bwd_timing(32, 2048, 64, 36)            # ModelConfig() at B=4, T=2048
+    bwd_timing(16, 1024, 256, 42)           # head_dim 256: the FMA kernels
     return train
 
 
@@ -446,19 +488,30 @@ def paged_case(name, args, page, atol):
     return out
 
 
+def paged_plan(args):
+    """(n_split, table window) that paged_attention_decode takes for args."""
+    q, kp, _, tables, _ = args
+    b, kh, g, d = q.shape
+    return paged_ops.plan(b, kh, g, d, tables.shape[1], kp.shape[2],
+                          _cuda.DTYPE_CODES[q.dtype], paged_ops._sm_count(q.device.index))
+
+
 def paged_timing(name, args, page, dtype):
     q, kp, vp, tables, lens = args
     kh, d = q.shape[1], q.shape[3]
-    ms = time_ms(lambda: paged_attention_decode(*args, page_size=page))
+    host_ms = time_ms(lambda: paged_attention_decode(*args, page_size=page))
+    ms = kernel_device_ms(lambda: paged_attention_decode(*args, page_size=page), "paged_decode")
     plain = time_ms(lambda: paged_attention_reference(*args, page_size=page), iters=5)
     total_len = lens.long().clamp(max=tables.shape[1] * page).sum().item()
     kv_bytes = 2 * total_len * kh * d * kp.element_size()
     n_bytes = kv_bytes + 2 * nbytes(q) + nbytes(lens) + 4 * total_len // page
     flops = 4.0 * q.shape[2] * d * kh * total_len
     bnd, by = bound_ms(n_bytes, flops, dtype)
-    print(f"paged {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
-          f"({by}), {n_bytes / ms / 1e6:.1f} GB/s")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
+    print(f"paged {name} (n_split {paged_plan(args)[0]}): kernel device {ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s), "
+          f"host+device per call {host_ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+          f"({by})")
+    return dict(ms=ms, host_ms=host_ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None)
 
 
 def phase_paged():
@@ -477,16 +530,26 @@ def phase_paged():
         check(max_err(out[0], out[1]) == 0.0, f"paged {tag}: shared pages differ")
         paged_case(f"{tag} hd128 G4", paged_inputs(3, 2, 4, 128, 64, 16, 4, [50, 64, 1],
                                                    dtype, 24), 16, atol)
-        # head_dim 80, and G * D = 16 * 128 over two blocks of 8 query rows
-        paged_case(f"{tag} hd80 G2", paged_inputs(3, 2, 2, 80, 64, 16, 4, [50, 64, 1],
-                                                  dtype, 27), 16, atol)
-        paged_case(f"{tag} hd128 G16", paged_inputs(3, 2, 16, 128, 64, 16, 4, [50, 64, 1],
-                                                    dtype, 28), 16, atol)
+        # head_dims of every vector width (8, 12 and 72 mask lanes; 256 is
+        # the widest), G = 8 at 256, and G * D = 16 * 128 over chunks
+        for d, g, seed in ((80, 2, 27), (8, 2, 29), (12, 2, 30), (72, 2, 31), (256, 2, 32),
+                           (256, 8, 33), (128, 16, 28)):
+            paged_case(f"{tag} hd{d} G{g}", paged_inputs(3, 2, g, d, 64, 16, 4, [50, 64, 1],
+                                                         dtype, seed), 16, atol)
+        # one slot 40x longer than the others: its splits are all full, the
+        # short slots' later ones empty; two launches give equal bits
+        long_args = paged_inputs(4, 4, 2, 64, 4 * 126 + 1, 16, 126, [50, 2000, 49, 1], dtype,
+                                 34)
+        n_split, _ = paged_plan(long_args)
+        out = paged_case(f"{tag} one slot 40x longer (n_split {n_split})", long_args, 16, atol)
+        again = paged_attention_decode(*long_args, page_size=16)
+        check(n_split > 1, f"paged {tag} long slot: n_split {n_split}")
+        check(torch.equal(out, again), f"paged {tag}: two launches differ")
     # the large configuration: 256 slots x 512 pages of 16 (8192 positions)
     lens = torch.randint(1, 512 * 16 + 1, (256,), generator=torch.Generator().manual_seed(5))
     big = paged_inputs(256, 4, 2, 64, 256 * 512 + 1, 16, 512, lens.tolist(), bf16, 25)
     paged_case("bf16 B=256 P_max=512", big, 16, 2e-2)
-    paged_timing("bf16 B=256 P_max=512", big, 16, bf16)
+    big_row = paged_timing("bf16 B=256 P_max=512", big, 16, bf16)
     del big
     # the engine's decode step: B=8, 4 KV heads x 2, hd 64, 256 pages of 16,
     # P_max 128, at the lengths of the serving phase's mid-point
@@ -497,6 +560,7 @@ def phase_paged():
     check(err <= 2e-2, f"paged engine shapes error {err}")
     row = paged_timing("bf16 engine shapes B=8 P_max=128", main, 16, bf16)
     row["max_abs_err"] = err
+    row["big_shape"] = dict(shape="B=256 P_max=512 page 16 KH=4 G=2 D=64 bf16", **big_row)
     return row
 
 

@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels: element conversion, 16-byte tile
-// loads into f32 shared memory, bf16 packing and in-place scaling of a
-// bf16 tile.
+// loads into f32 shared memory, the f32 flash kernels' geometry, bf16
+// packing and in-place scaling of a bf16 tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +38,40 @@ __device__ __forceinline__ void store_vec(float* dst, const uint4& u) {
 #pragma unroll
   for (int i = 0; i < Vec<T>::N; ++i) dst[i] = to_f(e[i]);
 }
+
+// Copy a [ROWS, D] tile of T from global memory (row stride D) into f32
+// shared memory (row stride LD) over THREADS threads, optionally times
+// `mul` rounded to T.
+template <typename T, int D, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void tile_to_smem(float* dst, const T* src, int tid, float mul,
+                                             bool scaled) {
+  constexpr int VN = Vec<T>::N;
+  constexpr int CPR = D / VN;
+  constexpr int CH = ROWS * CPR / THREADS;
+  static_assert((ROWS * CPR) % THREADS == 0, "tile must split evenly");
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int idx = tid + c * THREADS;
+    const int row = idx / CPR, col = (idx % CPR) * VN;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + row * D + col);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < VN; ++i)
+      dst[row * LD + col + i] = scaled ? round_to<T>(to_f(e[i]) * mul) : to_f(e[i]);
+  }
+}
+
+// The flash FMA kernels (f32 at every head_dim, bf16 at D = 256) by
+// head_dim: kTpr threads share a 64-row tile's row (D / kTpr accumulators
+// each, so D = 256 takes 4 threads a row and 256 threads a block), and at
+// D = 256 the tile walked beside the resident one is halved (the dQ
+// kernel's key tile, the dK/dV kernel's Q tile) so that its f32 tiles fit
+// the 227 KB of shared memory a block may have
+template <int D> struct FmaGeom {
+  static constexpr int kTpr = D > 128 ? 4 : 2;
+  static constexpr int kThreads = 64 * kTpr;
+  static constexpr int kWalk = D > 128 ? 32 : 64;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo

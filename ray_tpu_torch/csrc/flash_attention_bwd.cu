@@ -51,8 +51,10 @@
 //     dS = P * (dP - delta) is rounded to bf16 into A fragments (the S
 //     accumulator's layout is the A fragment's) and dQ += dS.K reads the
 //     same K tile MN-major (transpose-B), so nothing is copied transposed.
-//   - f32 (tests and checks): plain f32 FMAs from shared memory, two
-//     threads per row.
+//   - f32 (tests and checks), and bf16 at D = 256, which the wgmma kernels
+//     do not take: plain f32 FMAs from shared memory, two threads a row (at
+//     D = 256 four, with 32-row tiles walked beside the resident 64-row
+//     one, to fit 227 KB of shared memory: FmaGeom in common.cuh).
 //   - the Pallas rounding points: q * scale rounded to the input dtype, dO
 //     and dP in f32, dS rounded to the input dtype before dS.K and
 //     dS^T.(scale * Q), dQ scaled once more at the end, dK not. Pallas
@@ -77,64 +79,45 @@ using namespace rtt;
 
 namespace {
 
-constexpr int kThreads = 128;  // FMA: 2 threads a row; wgmma: a warpgroup
-constexpr int kBQ = 64;        // Q tile of the dQ kernels (and of the f32 dK/dV kernel)
-constexpr int kBK = 64;        // K tile of the dK/dV kernels and of the f32 dQ kernel
+constexpr int kThreads = 128;  // wgmma: a warpgroup (FMA kernels: FmaGeom)
+constexpr int kBQ = 64;        // Q tile of the dQ kernels (and of the FMA dK/dV kernel below D = 256)
+constexpr int kBK = 64;        // K tile of the dK/dV kernels (and of the FMA dQ kernel below D = 256)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // f32 (and any T): FMA kernels
 // ---------------------------------------------------------------------------
 
-// Copy a [rows, D] tile of T from global memory (row stride D) into f32
-// shared memory (row stride LD), optionally times `mul` rounded to T.
-template <typename T, int D, int ROWS, int LD>
-__device__ __forceinline__ void tile_to_smem(float* dst, const T* src, int tid, float mul,
-                                             bool scaled) {
-  constexpr int VN = Vec<T>::N;
-  constexpr int CPR = D / VN;
-  constexpr int CH = ROWS * CPR / kThreads;
-  static_assert((ROWS * CPR) % kThreads == 0, "tile must split evenly");
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int idx = tid + c * kThreads;
-    const int row = idx / CPR, col = (idx % CPR) * VN;
-    const uint4 u = *reinterpret_cast<const uint4*>(src + row * D + col);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int i = 0; i < VN; ++i)
-      dst[row * LD + col + i] = scaled ? round_to<T>(to_f(e[i]) * mul) : to_f(e[i]);
-  }
-}
-
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_fma_kernel(
+__global__ void __launch_bounds__(FmaGeom<D>::kThreads) flash_bwd_dq_fma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, int t_len, int s_len, int causal, float scale) {
+  constexpr int TPR = FmaGeom<D>::kTpr, NT = FmaGeom<D>::kThreads;  // threads a row, a block
+  constexpr int BK = FmaGeom<D>::kWalk;  // key tile
   constexpr int LD = D + 1;  // padded rows: conflict-free column reads
-  constexpr int LP = kBK + 1;
-  constexpr int HD = D / 2;    // dq columns per thread
-  constexpr int HK = kBK / 2;  // score columns per thread
+  constexpr int LP = BK + 1;
+  constexpr int HD = D / TPR;  // dq columns per thread
+  constexpr int HK = BK / TPR;  // score columns per thread
 
   extern __shared__ float sm[];
   float* qs = sm;              // [kBQ][LD] q * scale, rounded to T
   float* dos = qs + kBQ * LD;  // [kBQ][LD]
-  float* ks = dos + kBQ * LD;  // [kBK][LD]
-  float* vs = ks + kBK * LD;   // [kBK][LD]
-  float* dss = vs + kBK * LD;  // [kBQ][LP] dS rounded to T
+  float* ks = dos + kBQ * LD;  // [BK][LD]
+  float* vs = ks + BK * LD;    // [BK][LD]
+  float* dss = vs + BK * LD;   // [kBQ][LP] dS rounded to T
 
   const int nq = t_len / kBQ;
   const int bh = blockIdx.x / nq;
   const int qi = nq - 1 - (int)(blockIdx.x % nq);  // heaviest causal tiles first
-  const int tid = threadIdx.x, r = tid >> 1, hf = tid & 1;
+  const int tid = threadIdx.x, r = tid / TPR, hf = tid % TPR;  // row, and part of it
   const int q_pos = qi * kBQ + r;
   const size_t q_off = ((size_t)bh * t_len + (size_t)qi * kBQ) * D;
   const T* kbase = k + (size_t)bh * s_len * D;
   const T* vbase = v + (size_t)bh * s_len * D;
 
-  tile_to_smem<T, D, kBQ, LD>(qs, q + q_off, tid, round_to<T>(scale), true);
-  tile_to_smem<T, D, kBQ, LD>(dos, dout + q_off, tid, 1.f, false);
+  tile_to_smem<T, D, kBQ, LD, NT>(qs, q + q_off, tid, round_to<T>(scale), true);
+  tile_to_smem<T, D, kBQ, LD, NT>(dos, dout + q_off, tid, 1.f, false);
   const float lse_r = lse[(size_t)bh * t_len + q_pos];
   const float delta_r = delta[(size_t)bh * t_len + q_pos];
 
@@ -142,16 +125,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_fma_kernel(
 #pragma unroll
   for (int j = 0; j < HD; ++j) acc[j] = 0.f;
 
-  int n_kb = s_len / kBK;
-  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / kBK + 1);
+  int n_kb = s_len / BK;
+  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / BK + 1);
 
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();  // every thread is done with the previous K/V and dS
-    tile_to_smem<T, D, kBK, LD>(ks, kbase + (size_t)kb * kBK * D, tid, 1.f, false);
-    tile_to_smem<T, D, kBK, LD>(vs, vbase + (size_t)kb * kBK * D, tid, 1.f, false);
+    tile_to_smem<T, D, BK, LD, NT>(ks, kbase + (size_t)kb * BK * D, tid, 1.f, false);
+    tile_to_smem<T, D, BK, LD, NT>(vs, vbase + (size_t)kb * BK * D, tid, 1.f, false);
     __syncthreads();
 
-    // S and dP of row r against columns 2j + hf
+    // S and dP of row r against columns TPR * j + hf
     float s[HK], dp[HK];
 #pragma unroll
     for (int j = 0; j < HK; ++j) s[j] = dp[j] = 0.f;
@@ -160,76 +143,78 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_fma_kernel(
       const float qd = qs[r * LD + d], od = dos[r * LD + d];
 #pragma unroll
       for (int j = 0; j < HK; ++j) {
-        s[j] += qd * ks[(2 * j + hf) * LD + d];
-        dp[j] += od * vs[(2 * j + hf) * LD + d];
+        s[j] += qd * ks[(TPR * j + hf) * LD + d];
+        dp[j] += od * vs[(TPR * j + hf) * LD + d];
       }
     }
 #pragma unroll
     for (int j = 0; j < HK; ++j) {
-      const int c = 2 * j + hf;
-      const float sv = (causal && kb * kBK + c > q_pos) ? -1e30f : s[j];
+      const int c = TPR * j + hf;
+      const float sv = (causal && kb * BK + c > q_pos) ? -1e30f : s[j];
       const float p = expf(sv - lse_r);
       dss[r * LP + c] = round_to<T>(p * (dp[j] - delta_r));
     }
     __syncthreads();  // the row's dS is complete
 
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
+    for (int c = 0; c < BK; ++c) {
       const float dsc = dss[r * LP + c];
 #pragma unroll
-      for (int j = 0; j < HD; ++j) acc[j] += dsc * ks[c * LD + 2 * j + hf];
+      for (int j = 0; j < HD; ++j) acc[j] += dsc * ks[c * LD + TPR * j + hf];
     }
   }
 
   T* out = dq + ((size_t)bh * t_len + q_pos) * D;
 #pragma unroll
-  for (int j = 0; j < HD; ++j) out[2 * j + hf] = from_f<T>(acc[j] * scale);
+  for (int j = 0; j < HD; ++j) out[TPR * j + hf] = from_f<T>(acc[j] * scale);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fma_kernel(
+__global__ void __launch_bounds__(FmaGeom<D>::kThreads) flash_bwd_dkv_fma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, int t_len, int s_len, int causal, float scale) {
+  constexpr int TPR = FmaGeom<D>::kTpr, NT = FmaGeom<D>::kThreads;  // threads a row, a block
+  constexpr int BQ = FmaGeom<D>::kWalk;  // Q tile
   constexpr int LD = D + 1;
-  constexpr int LP = kBQ + 1;
-  constexpr int HD = D / 2;    // dk/dv columns per thread
-  constexpr int HQ = kBQ / 2;  // score columns (queries) per thread
+  constexpr int LP = BQ + 1;
+  constexpr int HD = D / TPR;  // dk/dv columns per thread
+  constexpr int HQ = BQ / TPR;  // score columns (queries) per thread
 
   extern __shared__ float sm[];
   float* ks = sm;              // [kBK][LD]
   float* vs = ks + kBK * LD;   // [kBK][LD]
-  float* qs = vs + kBK * LD;   // [kBQ][LD] q * scale, rounded to T
-  float* dos = qs + kBQ * LD;  // [kBQ][LD]
-  float* ps = dos + kBQ * LD;  // [kBK][LP] P^T in f32
+  float* qs = vs + kBK * LD;   // [BQ][LD] q * scale, rounded to T
+  float* dos = qs + BQ * LD;   // [BQ][LD]
+  float* ps = dos + BQ * LD;   // [kBK][LP] P^T in f32
   float* dss = ps + kBK * LP;  // [kBK][LP] dS^T rounded to T
-  float* lse_s = dss + kBK * LP;  // [kBQ]
-  float* delta_s = lse_s + kBQ;   // [kBQ]
+  float* lse_s = dss + kBK * LP;  // [BQ]
+  float* delta_s = lse_s + BQ;    // [BQ]
 
   const int nk = s_len / kBK;
   const int bh = blockIdx.x / nk;
   const int ki = (int)(blockIdx.x % nk);  // causal: early K tiles see the most Q tiles
-  const int tid = threadIdx.x, r = tid >> 1, hf = tid & 1;
+  const int tid = threadIdx.x, r = tid / TPR, hf = tid % TPR;  // row, and part of it
   const int k_pos = ki * kBK + r;
   const size_t k_off = ((size_t)bh * s_len + (size_t)ki * kBK) * D;
   const float scale_t = round_to<T>(scale);
 
-  tile_to_smem<T, D, kBK, LD>(ks, k + k_off, tid, 1.f, false);
-  tile_to_smem<T, D, kBK, LD>(vs, v + k_off, tid, 1.f, false);
+  tile_to_smem<T, D, kBK, LD, NT>(ks, k + k_off, tid, 1.f, false);
+  tile_to_smem<T, D, kBK, LD, NT>(vs, v + k_off, tid, 1.f, false);
 
   float dka[HD], dva[HD];
 #pragma unroll
   for (int j = 0; j < HD; ++j) dka[j] = dva[j] = 0.f;
 
-  const int n_qb = t_len / kBQ;
-  const int qb_start = causal ? ki * kBK / kBQ : 0;  // earlier Q tiles see nothing
+  const int n_qb = t_len / BQ;
+  const int qb_start = causal ? ki * kBK / BQ : 0;  // earlier Q tiles see nothing
   for (int qb = qb_start; qb < n_qb; ++qb) {
     __syncthreads();  // every thread is done with the previous Q tile
-    const size_t q_off = ((size_t)bh * t_len + (size_t)qb * kBQ) * D;
-    tile_to_smem<T, D, kBQ, LD>(qs, q + q_off, tid, scale_t, true);
-    tile_to_smem<T, D, kBQ, LD>(dos, dout + q_off, tid, 1.f, false);
-    if (tid < kBQ) lse_s[tid] = lse[(size_t)bh * t_len + qb * kBQ + tid];
-    else if (tid < 2 * kBQ) delta_s[tid - kBQ] = delta[(size_t)bh * t_len + qb * kBQ + tid - kBQ];
+    const size_t q_off = ((size_t)bh * t_len + (size_t)qb * BQ) * D;
+    tile_to_smem<T, D, BQ, LD, NT>(qs, q + q_off, tid, scale_t, true);
+    tile_to_smem<T, D, BQ, LD, NT>(dos, dout + q_off, tid, 1.f, false);
+    if (tid < BQ) lse_s[tid] = lse[(size_t)bh * t_len + qb * BQ + tid];
+    else if (tid < 2 * BQ) delta_s[tid - BQ] = delta[(size_t)bh * t_len + qb * BQ + tid - BQ];
     __syncthreads();
 
     // S^T and dP^T of key row r against queries 2j + hf
@@ -241,14 +226,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fma_kernel(
       const float kd = ks[r * LD + d], vd = vs[r * LD + d];
 #pragma unroll
       for (int j = 0; j < HQ; ++j) {
-        s[j] += kd * qs[(2 * j + hf) * LD + d];
-        dp[j] += vd * dos[(2 * j + hf) * LD + d];
+        s[j] += kd * qs[(TPR * j + hf) * LD + d];
+        dp[j] += vd * dos[(TPR * j + hf) * LD + d];
       }
     }
 #pragma unroll
     for (int j = 0; j < HQ; ++j) {
-      const int c = 2 * j + hf;
-      const float sv = (causal && k_pos > qb * kBQ + c) ? -1e30f : s[j];
+      const int c = TPR * j + hf;
+      const float sv = (causal && k_pos > qb * BQ + c) ? -1e30f : s[j];
       const float p = expf(sv - lse_s[c]);
       ps[r * LP + c] = p;
       dss[r * LP + c] = round_to<T>(p * (dp[j] - delta_s[c]));
@@ -256,12 +241,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fma_kernel(
     __syncthreads();  // the row's P^T and dS^T are complete
 
 #pragma unroll 4
-    for (int c = 0; c < kBQ; ++c) {
+    for (int c = 0; c < BQ; ++c) {
       const float pc = ps[r * LP + c], dsc = dss[r * LP + c];
 #pragma unroll
       for (int j = 0; j < HD; ++j) {
-        dva[j] += pc * dos[c * LD + 2 * j + hf];
-        dka[j] += dsc * qs[c * LD + 2 * j + hf];
+        dva[j] += pc * dos[c * LD + TPR * j + hf];
+        dka[j] += dsc * qs[c * LD + TPR * j + hf];
       }
     }
   }
@@ -270,8 +255,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_fma_kernel(
   T* dv_row = dv + ((size_t)bh * s_len + k_pos) * D;
 #pragma unroll
   for (int j = 0; j < HD; ++j) {
-    dk_row[2 * j + hf] = from_f<T>(dka[j]);
-    dv_row[2 * j + hf] = from_f<T>(dva[j]);
+    dk_row[TPR * j + hf] = from_f<T>(dka[j]);
+    dv_row[TPR * j + hf] = from_f<T>(dva[j]);
   }
 }
 
@@ -765,14 +750,15 @@ cudaError_t launch_dq_wgmma(const BwdArgs& a) {
 
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value && D <= 128) {
     return launch_dq_wgmma<D>(a);
-  } else {
-    const size_t smem = sizeof(float) * ((2 * kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1));
+  } else {  // f32, and bf16 at D = 256
+    constexpr int BK = FmaGeom<D>::kWalk;
+    const size_t smem = sizeof(float) * ((2 * kBQ + 2 * BK) * (D + 1) + kBQ * (BK + 1));
     auto kern = flash_bwd_dq_fma_kernel<T, D>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
-    kern<<<(unsigned)a.bh * (unsigned)(a.t / kBQ), kThreads, smem, a.stream>>>(
+    kern<<<(unsigned)a.bh * (unsigned)(a.t / kBQ), FmaGeom<D>::kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.t, a.s, a.causal,
         a.scale);
@@ -808,15 +794,16 @@ cudaError_t launch_dkv_wgmma(const BwdArgs& a) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value && D <= 128) {
     return launch_dkv_wgmma<D>(a);
-  } else {
-    const size_t smem = sizeof(float) * ((2 * kBK + 2 * kBQ) * (D + 1) +
-                                         2 * kBK * (kBQ + 1) + 2 * kBQ);
+  } else {  // f32, and bf16 at D = 256
+    constexpr int BQ = FmaGeom<D>::kWalk;
+    const size_t smem = sizeof(float) * ((2 * kBK + 2 * BQ) * (D + 1) +
+                                         2 * kBK * (BQ + 1) + 2 * BQ);
     auto kern = flash_bwd_dkv_fma_kernel<T, D>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
-    kern<<<(unsigned)a.bh * (unsigned)(a.s / kBK), kThreads, smem, a.stream>>>(
+    kern<<<(unsigned)a.bh * (unsigned)(a.s / kBK), FmaGeom<D>::kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.t, a.s, a.causal, a.scale);
@@ -833,6 +820,8 @@ cudaError_t dispatch(bool is_dq, int d, const BwdArgs& a) {
       return is_dq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
     case 128:
       return is_dq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    case 256:
+      return is_dq ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a);
     default:
       return cudaErrorInvalidValue;
   }

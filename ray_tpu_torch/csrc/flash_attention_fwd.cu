@@ -32,7 +32,9 @@
 //   - a box past a head's last key row is zero-filled by TMA (3-D maps
 //     [bh, S, D]), and those keys are masked at -1e30 like the causal
 //     future; causal blocks stop at the diagonal, heaviest Q tiles first.
-// f32 (tests and checks): plain f32 FMAs from shared memory, 64x64 tiles.
+// f32 (tests and checks), and bf16 at D = 256, which the wgmma kernel does
+// not take: plain f32 FMAs from shared memory, 64x64 tiles (at D = 256,
+// 214,016 B of shared memory and four threads a row).
 // Both keep the Pallas rounding points: q * scale in the input dtype, P cast
 // to V's dtype before P.V, f32 accumulation.
 // Not yet done (later work): persistent blocks, and on them
@@ -49,27 +51,27 @@ using namespace rtt;
 
 namespace {
 
-constexpr int kThreads = 128;  // FMA kernel: two threads per Q row; wgmma: one warpgroup
+constexpr int kThreads = 128;  // the wgmma kernel's warpgroup (FMA kernels: FmaGeom)
 constexpr int kBQ = 64;
 constexpr int kBK = 64;  // FMA kernel's key tile, and the granularity of S
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
+__global__ void __launch_bounds__(FmaGeom<D>::kThreads) flash_fwd_fma_kernel(
     const T* __restrict__ q,  // [bh, T, D]
     const T* __restrict__ k,  // [bh, S, D]
     const T* __restrict__ v,  // [bh, S, D]
     T* __restrict__ o,        // [bh, T, D]
     float* __restrict__ lse,  // [bh, 1, T]
     int t_len, int s_len, int causal, float scale) {
+  constexpr int TPR = FmaGeom<D>::kTpr, NT = FmaGeom<D>::kThreads;  // threads a row, a block
   constexpr int LD = D + 1;    // padded rows: conflict-free column reads
   constexpr int LP = kBK + 1;
   constexpr int VN = Vec<T>::N;
-  constexpr int CPR = D / VN;                // 16-byte chunks per row
-  constexpr int CH = kBK * CPR / kThreads;   // chunks per thread per K/V tile
-  constexpr int QCH = kBQ * CPR / kThreads;  // chunks per thread of the Q tile
-  constexpr int HD = D / 2;                  // output columns per thread
-  constexpr int HK = kBK / 2;                // score columns per thread
-  static_assert((kBK * CPR) % kThreads == 0, "tile must split evenly");
+  constexpr int CPR = D / VN;           // 16-byte chunks per row
+  constexpr int CH = kBK * CPR / NT;    // chunks per thread per K/V tile
+  constexpr int HD = D / TPR;           // output columns per thread
+  constexpr int HK = kBK / TPR;         // score columns per thread
+  static_assert((kBK * CPR) % NT == 0, "tile must split evenly");
 
   extern __shared__ float sm[];
   float* qs = sm;             // [kBQ][LD] q * scale, rounded to T
@@ -80,22 +82,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
   const int nq = t_len / kBQ;
   const int bh = blockIdx.x / nq;
   const int qi = nq - 1 - (int)(blockIdx.x % nq);  // heaviest causal tiles first
-  const int tid = threadIdx.x, r = tid >> 1, hf = tid & 1;
+  const int tid = threadIdx.x, r = tid / TPR, hf = tid % TPR;  // row, and part of it
   const int q_pos = qi * kBQ + r;
   const T* qb = q + ((size_t)bh * t_len + (size_t)qi * kBQ) * D;
   const T* kbase = k + (size_t)bh * s_len * D;
   const T* vbase = v + (size_t)bh * s_len * D;
   const float scale_t = round_to<T>(scale);
 
-#pragma unroll
-  for (int c = 0; c < QCH; ++c) {
-    const int idx = tid + c * kThreads;
-    const int row = idx / CPR, col = (idx % CPR) * VN;
-    const uint4 u = *reinterpret_cast<const uint4*>(qb + row * D + col);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int i = 0; i < VN; ++i) qs[row * LD + col + i] = round_to<T>(to_f(e[i]) * scale_t);
-  }
+  tile_to_smem<T, D, kBQ, LD, NT>(qs, qb, tid, scale_t, true);
 
   float m = -INFINITY, l = 0.f;
   float acc[HD];
@@ -109,7 +103,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
     uint4 kbuf[CH], vbuf[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      const int idx = tid + c * kThreads;
+      const int idx = tid + c * NT;
       const size_t off = ((size_t)kb * kBK + idx / CPR) * D + (idx % CPR) * VN;
       kbuf[c] = *reinterpret_cast<const uint4*>(kbase + off);
       vbuf[c] = *reinterpret_cast<const uint4*>(vbase + off);
@@ -117,14 +111,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
     __syncthreads();  // every thread is done with the previous tile
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      const int idx = tid + c * kThreads;
+      const int idx = tid + c * NT;
       const int row = idx / CPR, col = (idx % CPR) * VN;
       store_vec<T>(ks + row * LD + col, kbuf[c]);
       store_vec<T>(vs + row * LD + col, vbuf[c]);
     }
     __syncthreads();
 
-    // scores of row r against columns 2j + hf
+    // scores of row r against columns TPR * j + hf
     float s[HK];
 #pragma unroll
     for (int j = 0; j < HK; ++j) s[j] = 0.f;
@@ -132,17 +126,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
     for (int d = 0; d < D; ++d) {
       const float qd = qs[r * LD + d];
 #pragma unroll
-      for (int j = 0; j < HK; ++j) s[j] += qd * ks[(2 * j + hf) * LD + d];
+      for (int j = 0; j < HK; ++j) s[j] += qd * ks[(TPR * j + hf) * LD + d];
     }
     if (causal) {
 #pragma unroll
       for (int j = 0; j < HK; ++j)
-        if (kb * kBK + 2 * j + hf > q_pos) s[j] = -1e30f;
+        if (kb * kBK + TPR * j + hf > q_pos) s[j] = -1e30f;
     }
     float mx = s[0];
 #pragma unroll
     for (int j = 1; j < HK; ++j) mx = fmaxf(mx, s[j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+#pragma unroll
+    for (int w = 1; w < TPR; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
     const float m_new = fmaxf(m, mx);
     const float alpha = expf(m - m_new);
     float sum = 0.f;
@@ -150,9 +145,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
     for (int j = 0; j < HK; ++j) {
       const float p = expf(s[j] - m_new);
       sum += p;
-      ps[r * LP + 2 * j + hf] = round_to<T>(p);
+      ps[r * LP + TPR * j + hf] = round_to<T>(p);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+#pragma unroll
+    for (int w = 1; w < TPR; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
     l = l * alpha + sum;
     m = m_new;
     __syncthreads();  // the row's P is complete
@@ -163,14 +159,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_fma_kernel(
     for (int c = 0; c < kBK; ++c) {
       const float pc = ps[r * LP + c];
 #pragma unroll
-      for (int j = 0; j < HD; ++j) acc[j] += pc * vs[c * LD + 2 * j + hf];
+      for (int j = 0; j < HD; ++j) acc[j] += pc * vs[c * LD + TPR * j + hf];
     }
   }
 
   const float l_safe = fmaxf(l, 1e-30f);
   T* ob = o + ((size_t)bh * t_len + q_pos) * D;
 #pragma unroll
-  for (int j = 0; j < HD; ++j) ob[2 * j + hf] = from_f<T>(acc[j] / l_safe);
+  for (int j = 0; j < HD; ++j) ob[TPR * j + hf] = from_f<T>(acc[j] / l_safe);
   if (hf == 0) lse[(size_t)bh * t_len + q_pos] = m + logf(l_safe);
 }
 
@@ -404,15 +400,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                    int t, int s, int causal, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D <= 128) {
     return launch_wgmma<D>(q, k, v, o, lse, bh, t, s, causal, scale, stream);
-  } else {
+  } else {  // f32, and bf16 at D = 256
     const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1));
     auto kern = flash_fwd_fma_kernel<T, D>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kern<<<(unsigned)bh * (unsigned)(t / kBQ), kThreads, smem, stream>>>(
+    kern<<<(unsigned)bh * (unsigned)(t / kBQ), FmaGeom<D>::kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), lse, t, s, causal, scale);
     return cudaGetLastError();
@@ -429,6 +425,8 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
       return launch<T, 64>(q, k, v, o, lse, bh, t, s, causal, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, bh, t, s, causal, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, lse, bh, t, s, causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -10,11 +10,12 @@ Port of ``ray_tpu/ops/flash_attention.py``, forward and backward.
 - ragged causal self-attention is zero-padded to the kernel's block and
   sliced back (exact: padded keys sit in every real query's masked future,
   padded query rows get dO = 0, and the pad's gradients are dropped);
-- a head_dim between the kernels' widths (32, 64, 128) is zero-padded to
-  the next one and sliced back, with the softmax scale kept at
-  1/sqrt(real head_dim) (exact: zero columns add exact zeros to Q.K^T, the
-  padded columns of O, dQ, dK and dV are zeros and are dropped, and delta
-  is unchanged); head_dim > 128 raises on CUDA;
+- a head_dim between the kernels' widths (32, 64, 128, 256) is
+  zero-padded to the next one and sliced back, with the softmax scale kept
+  at 1/sqrt(real head_dim) (exact: zero columns add exact zeros to Q.K^T,
+  the padded columns of O, dQ, dK and dV are zeros and are dropped, and
+  delta is unchanged); head_dim > 256 raises on CUDA. bf16 runs the wgmma
+  kernels up to 128 and the FMA kernels at 256;
 - ragged non-causal input goes to ``attention_reference``, as in the JAX
   package. That is the documented contract, not a fallback for a failed
   launch: the wrappers' ``.launches`` counts show which branch ran.
@@ -53,7 +54,7 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 # S must be multiples of these
 BLOCK_Q = 64
 BLOCK_K = 64
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _bind(source: str, name: str, n_ptrs: int):
@@ -89,7 +90,7 @@ def _scale(qg, scale):
 
 def _padded_head_dim(d: int) -> int:
     """The kernel width that ``flash_attention`` pads head_dim ``d`` to (``d``
-    itself above 128, which the kernels refuse)."""
+    itself above 256, which the kernels refuse)."""
     return next((w for w in _HEAD_DIMS if w >= d), d)
 
 
@@ -141,7 +142,8 @@ def _check_inputs(qg, kg, vg):
     if d not in _HEAD_DIMS:
         raise ValueError(
             f"flash_attention_forward takes head_dim in {_HEAD_DIMS}, got {d} "
-            f"(flash_attention pads head_dim up to 128; the kernels take no wider head)"
+            f"(flash_attention pads head_dim up to {_HEAD_DIMS[-1]}; the kernels take no "
+            f"wider head)"
         )
     if t % BLOCK_Q or kg.shape[1] % BLOCK_K or kg.shape[1] == 0:
         raise ValueError(

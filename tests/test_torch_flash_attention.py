@@ -49,23 +49,25 @@ def test_ragged_causal_pads():
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 
-@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("d", [80, 96, 160, 256])
 @pytest.mark.parametrize(
     "shape,causal",
     [((1, 128, 4, 2), True), ((2, 128, 4, 4), False), ((1, 100, 4, 2), True)],
 )
 def test_padded_head_dims_match_jax_kernel(d, shape, causal):
     """head_dim 80 and 96 (between the kernels' widths) are zero-padded to
-    128 and sliced back, the softmax scale kept at 1/sqrt(d): causal GQA
-    4->2, non-causal, and ragged causal T=100 (padded in T as well)."""
+    128, and 160 to 256, and sliced back, the softmax scale kept at
+    1/sqrt(d); 256 is a kernel width itself: causal GQA 4->2, non-causal,
+    and ragged causal T=100 (padded in T as well)."""
     want, got = both(*mk_qkv(12, *shape, d), causal)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 
 def test_head_dim_pad_widths():
-    assert [T._padded_head_dim(d) for d in (16, 32, 48, 64, 80, 96, 112, 128, 256)] == [
-        32, 32, 64, 64, 128, 128, 128, 128, 256]
+    assert [T._padded_head_dim(d) for d in (16, 32, 48, 64, 80, 96, 112, 128, 129, 160, 256,
+                                            272)] == [
+        32, 32, 64, 64, 128, 128, 128, 128, 256, 256, 256, 272]
 
 
 def test_ragged_noncausal_takes_reference():
@@ -137,14 +139,16 @@ def cos_loss(out, xp):
         ("D=80 ragged causal T=70", (1, 70, 4, 2, 80), True, lambda o, xp: (o**2).sum()),
         ("D=96 GQA 4->2", (1, 128, 4, 2, 96), True, cos_loss),
         ("D=96 ragged causal T=100", (1, 100, 4, 2, 96), True, cos_loss),
+        ("D=160 GQA 4->2", (1, 128, 4, 2, 160), True, cos_loss),
+        ("D=256 ragged causal T=100", (1, 100, 2, 2, 256), True, cos_loss),
     ],
 )
 def test_grads_match_jax_kernel(name, shape, causal, loss):
     """The cases of tests/test_flash_attention.py's backward tests, at the
     reference's own tolerance (atol 5e-3): dk/dv sum over GQA groups and
     the ragged pad's gradients are dropped. head_dim 80 and 96 are padded to
-    128 with the scale kept at 1/sqrt(real head_dim); the pad's gradients
-    are dropped too."""
+    128, and 160 to 256, with the scale kept at 1/sqrt(real head_dim); the
+    pad's gradients are dropped too."""
     want, got = grads_both(*mk_qkv(8, *shape), causal, loss)
     for w, g, n in zip(want, got, "qkv"):
         assert g.shape == w.shape
@@ -232,3 +236,11 @@ def test_kernel_input_checks(shape_q, shape_k, dtype):
     with pytest.raises((ValueError, TypeError)):
         T._check_inputs(qg, kg, kg)
 
+
+
+def test_head_dim_above_256_is_refused_naming_the_limit():
+    """head_dim 272 reaches the kernels unpadded and is refused with the
+    widths they take; 256 is taken."""
+    T._check_inputs(*(torch.zeros(2, 128, 256) for _ in range(3)))
+    with pytest.raises(ValueError, match="256"):
+        T._check_inputs(*(torch.zeros(2, 128, 272) for _ in range(3)))
