@@ -37,7 +37,16 @@ passes or exits non-zero:
    of ``make_train_step`` on one batch (flash launches counted from zero):
    the loss must be finite and fall; then checks an f32 ``ModelConfig()``
    loss and every gradient on the card against the CPU's plain path;
-6. prints the kernel table as one JSON line, then the result line.
+6. runs the scheduler slice on the card against the port's CPU path, every
+   output bit-identical: bench.py's kernel tier (1,024 nodes, 100,000
+   requests) through ``hybrid_schedule_shapes``, with capacity recomputed on
+   the host; the head's round at 10,000 nodes and a 200,000-request backlog
+   through ``DeviceSchedulerState`` and ``SchedulerPipeline`` (rounds of
+   4,096 at depth 3), with the default weights and the multi-objective ones,
+   placement divergence 0; then the fidelity, chunked, ring, slot, bundle
+   and autoscaler programs; prints ms per call, placements/s, round-latency
+   p50/p99, upload/kernel/readback ms, device ops and busy share;
+7. prints the kernel table as one JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -801,6 +810,423 @@ def phase_train_f32() -> None:
     check(max(errs) <= 1e-4, f"f32 train step card vs CPU: {errs}")
 
 
+# ---------------------------------------------------------------------------
+# 6. the scheduler: card against the port's CPU path
+# ---------------------------------------------------------------------------
+SCHED_EPS = 1e-5  # the scheduler's comparison tolerance (scheduler/hybrid.py _EPS)
+
+
+def same_bits(a, b) -> bool:
+    """Every element of two outputs (tensors or arrays) bit-identical."""
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    if a.dtype.kind == "f":
+        a, b = a.view(np.int32), b.view(np.int32)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def check_same(name: str, card, cpu) -> None:
+    card = card if isinstance(card, (tuple, list)) else (card,)
+    cpu = cpu if isinstance(cpu, (tuple, list)) else (cpu,)
+    check(len(card) == len(cpu) and all(same_bits(a, b) for a, b in zip(card, cpu)),
+          f"scheduler {name}: card and CPU outputs differ")
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Mean host-clock ms of ``fn`` (which ends in a readback or a sync)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def device_share(label: str, fn, calls: int):
+    """torch.profiler over ``calls`` calls of ``fn``: device ms per call
+    (kernel rows only), device ops per call, and the device's busy share of
+    the wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    if not rows:
+        print(f"{label} profile: no device time in the trace (not measured)")
+        return None
+    busy_us = sum(r[0] for r in rows)
+    ops = sum(r[1] for r in rows) / calls
+    print(f"{label} profile over {calls} calls: wall {wall_us / calls / 1e3:.3f} ms/call, device "
+          f"{busy_us / calls / 1e3:.4f} ms/call, {ops:.0f} device ops/call, device busy "
+          f"{100 * busy_us / wall_us:.1f}%")
+    for us, count, key in sorted(rows, reverse=True)[:4]:
+        print(f"  {us / calls:9.1f} us/call  x{count // calls:<5d} {key[:80]}")
+    return dict(device_ms=busy_us / calls / 1e3, ops=ops, busy=busy_us / wall_us)
+
+
+def bench_cluster(num_nodes: int, rng):
+    """bench.py's kernel-tier cluster (build_cluster): a quarter of the
+    nodes with 4 TPUs, CPU availability drawn from uniform(0.5, 1.0)."""
+    from ray_tpu_torch.scheduler.resources import CPU, MEMORY, OBJECT_STORE_MEMORY, TPU
+
+    totals = np.zeros((num_nodes, 16), dtype=np.float32)
+    n_tpu = num_nodes // 4
+    totals[:, CPU], totals[:, MEMORY], totals[:, OBJECT_STORE_MEMORY] = 64.0, 256.0, 64.0
+    totals[:n_tpu, CPU] = 32.0
+    totals[:n_tpu, TPU] = 4.0
+    avail = totals.copy()
+    avail[:, CPU] *= rng.uniform(0.5, 1.0, num_nodes).astype(np.float32)
+    return totals, avail, np.ones(num_nodes, dtype=bool)
+
+
+def bench_demands(num_tasks: int, rng):
+    """bench.py's demand mix (build_demands): 70% 0.25 CPU, 15% 0.5 CPU and
+    1 memory, 10% 1 CPU, 5% 1 CPU and 1 TPU."""
+    from ray_tpu_torch.scheduler.resources import CPU, MEMORY, TPU
+
+    d = np.zeros((num_tasks, 16), dtype=np.float32)
+    kind = rng.choice(4, num_tasks, p=[0.70, 0.15, 0.10, 0.05])
+    d[:, CPU] = np.where(kind == 0, 0.25, np.where(kind == 1, 0.5, 1.0))
+    d[kind == 1, MEMORY] = 1.0
+    d[kind == 3, TPU] = 1.0
+    return d
+
+
+def sched_kernel_tier():
+    """1,024 nodes x 100,000 requests through hybrid_schedule_shapes, on the
+    card and on the CPU."""
+    from ray_tpu_torch.scheduler import hybrid as H
+
+    rng = np.random.default_rng(0)
+    totals, avail, alive = bench_cluster(1024, rng)
+    demands = bench_demands(100_000, rng)
+    shapes, ids = H.dedupe_shapes(demands)
+    dev_in = [torch.from_numpy(x).to(DEV) for x in (totals, avail, alive, shapes, ids)]
+    card = H.hybrid_schedule_shapes(*dev_in, 123)
+    cpu = H.hybrid_schedule_shapes(totals, avail, alive, shapes, ids, 123, device="cpu")
+    check_same("kernel tier hybrid_schedule_shapes", tuple(card), tuple(cpu))
+    nodes = card.node.cpu().numpy()
+    placed = nodes >= 0
+    after = avail.copy()
+    np.add.at(after, nodes[placed], -demands[placed])
+    check(after.min() >= -SCHED_EPS, f"kernel tier over-committed a node: min {after.min()}")
+    check(np.abs(after - card.avail_out.cpu().numpy()).max() <= 1e-3, "kernel tier avail_out")
+    ms = time_ms(lambda: H.hybrid_schedule_shapes(*dev_in, 7), iters=10, warmup=2)
+    cpu_ms = host_ms(lambda: H.hybrid_schedule_shapes(totals, avail, alive, shapes, ids, 7,
+                                                      device="cpu"))
+    prof = device_share("sched kernel tier hybrid_schedule_shapes N=1024 B=100000",
+                        lambda: H.hybrid_schedule_shapes(*dev_in, 7), 5)
+    print(f"sched kernel tier N=1024 B=100000 U={shapes.shape[0]}: placed {int(placed.sum())}, "
+          f"min avail after {after.min():.4f}; card {ms:.3f} ms/call "
+          f"({100_000 / ms * 1e3:.0f} placements/s), CPU {cpu_ms:.3f} ms/call; "
+          f"card == CPU bit for bit")
+    return dict(ms=ms, cpu_ms=cpu_ms, **(prof or {}))
+
+
+def sim_view(num_nodes: int, seed: int = 0):
+    """A ClusterView of sim.py's heterogeneous node mix (60% std 64 CPU /
+    256 memory, 20% dense 128/512 with throughput 1.25/1.1, 20% highmem
+    32/1024 with 0.8/1.2)."""
+    from ray_tpu_torch.scheduler.resources import ClusterView, ResourceVocab
+
+    mix = ((0.6, "std", {"CPU": 64.0, "memory": 256.0}, None),
+           (0.2, "dense", {"CPU": 128.0, "memory": 512.0}, {"CPU": 1.25, "memory": 1.1}),
+           (0.2, "highmem", {"CPU": 32.0, "memory": 1024.0}, {"memory": 1.2, "CPU": 0.8}))
+    view = ClusterView(ResourceVocab())
+    for _, name, _, thr in mix:
+        view.register_node_type(name, thr)
+    bounds = np.cumsum([m[0] for m in mix])
+    picks = np.random.default_rng(seed + 1).random(num_nodes)
+    for i in range(num_nodes):
+        _, name, res, _ = mix[min(int(np.searchsorted(bounds, picks[i])), len(mix) - 1)]
+        view.add_node(f"simnode-{i}", res, node_type=name)
+    return view
+
+
+def head_batches(width: int, num_demands: int, batch: int, seed: int = 0):
+    """sim.py's demand mix (build_demand_maps): 70% 0.25 CPU, 15% 0.5 CPU
+    and 1 memory, 15% 1 CPU, deduped per round of ``batch`` requests."""
+    from ray_tpu_torch.scheduler.hybrid import dedupe_shapes
+
+    kind = np.random.default_rng(seed).choice(3, num_demands, p=[0.70, 0.15, 0.15])
+    rows = np.zeros((3, width), np.float32)
+    rows[:, 0] = (0.25, 0.5, 1.0)
+    rows[1, 1] = 1.0
+    dem = rows[kind]
+    return [(dem[i:i + batch], *dedupe_shapes(dem[i:i + batch]))
+            for i in range(0, num_demands, batch)]
+
+
+def hist_delta(hist, before):
+    """(mean, p50, p99) of the observations made since ``before``."""
+    from ray_tpu_torch.util.metrics import percentile_from_buckets
+
+    count0, sum0, buckets0 = before
+    s = hist.summary()
+    buckets = [b - a for a, b in zip(buckets0, hist.buckets_snapshot())]
+    n = s["count"] - count0
+    mean = (s["sum"] - sum0) / n if n else float("nan")
+    return (mean, percentile_from_buckets(hist.boundaries, buckets, 0.5),
+            percentile_from_buckets(hist.boundaries, buckets, 0.99))
+
+
+def head_run(platform: str, batches, weights, with_ages: bool, label: str):
+    """The head's round: a DeviceSchedulerState synced from the ClusterView,
+    rounds of cfg.sched_max_batch requests dispatched through
+    SchedulerPipeline at cfg.sched_pipeline_depth. Returns every request's
+    node, in stream order, and the run's numbers."""
+    from ray_tpu_torch.config import cfg
+    from ray_tpu_torch.scheduler import device as D
+    from ray_tpu_torch.scheduler.pipeline import SchedulerPipeline
+
+    view = sim_view(10_000)
+    st = D.DeviceSchedulerState(platform=platform)
+    st.sync(view)
+    # first touch (allocator, kernels) on one round, then a full re-upload
+    # drops its deductions again
+    st.schedule_async(shapes=batches[0][1:], weights=weights,
+                      ages=np.zeros(batches[0][1].shape[0], np.float32)).result()
+    st.invalidate()
+    st.sync(view)
+    # an agent report from every tenth node: a dirty-row push ahead of the stream
+    for i in range(0, 10_000, 10):
+        row = view.row_of(f"simnode-{i}")
+        view.update_available(f"simnode-{i}", view.vocab.unpack(view.avail[row] * 0.75))
+    st.sync(view)
+    check(st.stats["delta_pushes"] == 1 and st.stats["delta_rows"] == 1000,
+          f"{label}: delta push {st.stats}")
+    avail0 = view.avail.copy()
+    results, round_ms, dispatch_ms = {}, [], []
+
+    def on_complete(ctx, rows, _ms):
+        i, t_start = ctx  # latency from the start of the dispatch call
+        results[i] = rows
+        round_ms.append((time.perf_counter() - t_start) * 1e3)
+
+    hists = (D.SCHED_UPLOAD_MS, D.SCHED_KERNEL_MS, D.SCHED_READBACK_MS)
+    before = [(h.summary()["count"], h.summary()["sum"], h.buckets_snapshot()) for h in hists]
+    pipe = SchedulerPipeline(on_complete=on_complete, depth=int(cfg.sched_pipeline_depth))
+    if platform == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i, (_, sd, sid) in enumerate(batches):
+            ages = (np.full(sd.shape[0], 0.5 + (i % 3), np.float32) if with_ages else None)
+            t_start = time.perf_counter()
+            st.sync(view)
+            pending = st.schedule_async(shapes=(sd, sid), ages=ages, weights=weights,
+                                        ctx=(i, t_start))
+            dispatch_ms.append((time.perf_counter() - t_start) * 1e3)
+            pipe.submit(pending)
+        check(pipe.flush(timeout=600.0), f"{label}: pipeline did not drain")
+    finally:
+        pipe.stop()
+    wall = time.perf_counter() - t0
+    upload, kernel, readback = (hist_delta(h, b) for h, b in zip(hists, before))
+    nodes = np.concatenate([results[i] for i in range(len(batches))])
+    dem = np.concatenate([b[0] for b in batches])
+    ok = nodes >= 0
+    after = avail0.copy()
+    np.add.at(after, nodes[ok], -dem[ok])
+    check(after.min() >= -SCHED_EPS, f"{label} {platform}: over-committed, min {after.min()}")
+    n = nodes.shape[0]
+    row = dict(placements_per_s=n / wall, p50=float(np.percentile(round_ms, 50)),
+               p99=float(np.percentile(round_ms, 99)), dispatch=float(np.mean(dispatch_ms)),
+               upload=upload, kernel=kernel,
+               readback=readback, placed=int(ok.sum()), rounds=len(batches),
+               peak=pipe.stats()["inflight_peak"])
+    print(f"sched head round {label} [{platform}] 10000 nodes, {n} requests in {len(batches)} "
+          f"rounds of {cfg.sched_max_batch} (depth {cfg.sched_pipeline_depth}): placed "
+          f"{row['placed']}, {row['placements_per_s']:.0f} placements/s, round latency p50 "
+          f"{row['p50']:.3f} ms p99 {row['p99']:.3f} ms, dispatch call {row['dispatch']:.3f} ms "
+          f"mean; upload_ms mean/p50/p99 "
+          f"{upload[0]:.3f}/{upload[1]:.3f}/{upload[2]:.3f}, kernel_ms "
+          f"{kernel[0]:.3f}/{kernel[1]:.3f}/{kernel[2]:.3f}, readback_ms "
+          f"{readback[0]:.4f}/{readback[1]:.4f}/{readback[2]:.4f}; min avail after "
+          f"{after.min():.4f}")
+    return nodes, row, st, view
+
+
+def sched_head_round():
+    """10,000 nodes and a 200,000-request backlog through the head's round,
+    card and CPU, with the default weights and with the multi-objective
+    ones (preemption and explain armed)."""
+    from ray_tpu_torch.scheduler.hybrid import ScoreWeights
+
+    out = {}
+    for label, weights, with_ages in (("defaults", ScoreWeights(), False),
+                                      ("multi-objective", ScoreWeights(1.0, 0.5, 1.0, 1.0),
+                                       True)):
+        batches = head_batches(16, 200_000, 4096)
+        card, card_row, st, view = head_run("cuda", batches, weights, with_ages, label)
+        cpu, cpu_row, _, _ = head_run("cpu", batches, weights, with_ages, label)
+        divergence = int((card != cpu).sum())
+        print(f"sched head round {label}: placement divergence card vs CPU {divergence}")
+        check(divergence == 0, f"sched head round {label}: divergence {divergence}")
+        sd, sid = batches[1][1:]
+        ages = np.ones(sd.shape[0], np.float32) if with_ages else None
+        prof = device_share(f"sched head round {label} (one 4096-request round, 10000 nodes)",
+                            lambda: st.schedule_async(shapes=(sd, sid), ages=ages,
+                                                      weights=weights).result(), 5)
+        out[label] = dict(card=card_row, cpu=cpu_row, profile=prof)
+    return out, st, view
+
+
+def sched_other_programs(st, view):
+    """The other programs, card against CPU, every output equal, timed."""
+    from ray_tpu_torch.scheduler import binpack as P
+    from ray_tpu_torch.scheduler import bundles as B
+    from ray_tpu_torch.scheduler import hybrid as H
+    from ray_tpu_torch.scheduler.resources import ResourceRequest
+    from ray_tpu_torch.scheduler.unpark import select_unparkable_resilient
+
+    rng = np.random.default_rng(1)
+    timings = {}
+
+    def both(name, fn, iters=1):
+        """``fn(device)`` on the card (a first-touch call, then ``iters``
+        timed calls) and once on the CPU; every output bit-identical."""
+        card = fn(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            card = fn(DEV)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        t0 = time.perf_counter()
+        cpu = fn("cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        check_same(name, card, cpu)
+        timings[name] = (ms, cpu_ms)
+        print(f"sched {name}: card {ms:.2f} ms, CPU {cpu_ms:.2f} ms; card == CPU bit for bit")
+        return card
+
+    totals, avail, alive = bench_cluster(256, rng)
+    dem = bench_demands(512, rng)
+    pref = rng.integers(0, 256, 512).astype(np.int32)
+    spill = rng.random(512) < 0.1
+    both("hybrid_schedule_batch N=256 B=512", lambda d: tuple(H.hybrid_schedule_batch(
+        totals, avail, alive, dem, pref, spill, 3, device=d)))
+    totals, avail, alive = bench_cluster(1024, rng)
+    chunks = bench_demands(8 * 4096, rng).reshape(8, 4096, 16)
+    res = both("hybrid_schedule_rounds_chunked N=1024 8x4096", lambda d: tuple(
+        H.hybrid_schedule_rounds_chunked(totals, avail, alive, chunks, 5, device=d)))
+    nodes = res[0].cpu().numpy()
+    flat = chunks.reshape(-1, 16)
+    after = avail.copy()
+    np.add.at(after, nodes[nodes >= 0], -flat[nodes >= 0])
+    check(after.min() >= -1e-4, f"rounds_chunked over-committed: {after.min()}")
+
+    # the parked-demand ring, full, and the slot estimator, on the head
+    # state's resident arrays (10,000 nodes) against the same on the CPU
+    n, r = view.num_nodes, view.totals.shape[1]
+    ring_rows = np.zeros((st.ring_slots, r), np.float32)
+    ring_rows[:, 0] = rng.choice([0.25, 0.5, 1.0, 2.0, 4.0, 8.0], st.ring_slots)
+    ring_rows[:, 1] = rng.choice([0.0, 1.0, 4.0], st.ring_slots)
+    ring_rows[:, 0] += np.arange(st.ring_slots) / 64.0  # one distinct shape per slot
+    counts = rng.integers(1, 5000, st.ring_slots).astype(np.int32)
+    ages = rng.uniform(0.0, 2.0, st.ring_slots).astype(np.float32)
+    args = [x.clone() for x in (st._totals, st._avail, st._alive, st._ntypes, st._thr)]
+    w = H.ScoreWeights(1.0, 0.5, 1.0, 1.0)
+    both(f"ring_schedule S={st.ring_slots} (full) N={n}", lambda d: tuple(H.ring_schedule_impl(
+        *[a.to(d) for a in args], ring_rows, counts, ages, 9, weights=w, preempt=True,
+        device=d)), iters=3)
+    both(f"shape_slots S={st.ring_slots} N={n}", lambda d: H.shape_slots_impl(
+        *[a.to(d) for a in args[:3]], ring_rows, device=d), iters=3)
+    for i in range(st.ring_slots):  # the state's own ring path
+        check(st.ring_park(("shape", i), ring_rows[i]), "ring_park refused a free slot")
+    check(not st.ring_park(("shape", "extra"), ring_rows[0]), "a full ring took another shape")
+    placed, per_node, pre = st.ring_schedule({i: int(counts[i]) for i in range(st.ring_slots)},
+                                             ages_by_slot={i: 1.5 for i in range(8)})
+    check(int(per_node.sum()) == int(placed.sum()) > 0, "ring_schedule counts")
+
+    # the unpark estimator: the device estimator runs, the host recovery not
+    calls, recovered = [0], [False]
+
+    def slots_fn(mat):
+        calls[0] += 1
+        return st.shape_slots(mat)
+
+    def refetch():
+        recovered[0] = True
+        return view.avail.copy(), view.alive.copy()
+
+    class Spec:
+        def __init__(self, res):
+            self.resources = res
+
+    parked = [Spec({"CPU": c}) for c in rng.choice([0.5, 1.0, 64.0], 3000)]
+    take, keep = select_unparkable_resilient(
+        parked, view.avail, view.alive, device_state=st, slots_fn=slots_fn, refetch=refetch,
+        is_constrained=lambda s: False, resources_of=lambda s: s.resources,
+        request_of=lambda s: ResourceRequest.from_map(view.vocab, s.resources))
+    check(calls[0] == 1 and not recovered[0], "unpark: device estimator not used, or recovered")
+    print(f"sched unpark: {len(take)} of {len(parked)} parked specs unpark by the card's "
+          f"shape_slots; host recovery not taken")
+
+    # placement groups: a 64-bundle group over the 10,000 nodes
+    t_h, a_h, al_h = (x.cpu().numpy() for x in args[:3])
+    bundles = np.zeros((64, r), np.float32)
+    bundles[:, 0] = rng.choice([1.0, 2.0, 4.0, 8.0], 64)
+    bundles[::4, 1] = 16.0
+    sb = bundles[B.sort_bundles(bundles)]
+    for name, fn in (("pack_bundles", B.pack_bundles),
+                     ("spread_bundles", lambda *a, **k: B.spread_bundles(*a, strict=False, **k)),
+                     ("spread_bundles strict", lambda *a, **k: B.spread_bundles(*a, strict=True,
+                                                                                 **k)),
+                     ("strict_pack_bundles", B.strict_pack_bundles)):
+        res = both(f"{name} B=64 N={n}", lambda d, fn=fn: tuple(fn(t_h, a_h, al_h, sb, device=d)))
+        check(bool(res[1]) or name == "strict_pack_bundles", f"{name} failed to place")
+
+    # the autoscaler: 10,000 node rows, 64 shapes
+    shapes = np.zeros((64, r), np.float32)
+    shapes[:, 0] = rng.choice([0.5, 1.0, 2.0, 4.0], 64) + np.arange(64) / 128.0
+    shapes[::3, 1] = 8.0
+    shapes = shapes[P.sort_demands(shapes)]
+    cnts = rng.integers(1, 400, 64).astype(np.float32)
+    rows = a_h[:n]
+    both(f"bin_pack_residual N={n} B=64", lambda d: tuple(P.bin_pack_residual(rows, shapes,
+                                                                              device=d)))
+    sol = both(f"solve_pack_counts N={n} U=64 iters=24", lambda d: tuple(P.solve_pack_counts(
+        rows, shapes, cnts, iters=24, device=d)))
+    check(float(sol[0].sum()) > 0, "solve placed nothing")
+    types = np.unique(t_h[:n], axis=0)
+    both(f"utilization_scores T={types.shape[0]} B=64", lambda d: tuple(P.utilization_scores(
+        types, shapes, device=d)), iters=3)
+    ids = [f"simnode-{i}" for i in range(n)]
+    demands = np.repeat(shapes, cnts.astype(np.int64), axis=0)
+    runs0, falls0 = P.SOLVER_RUNS.value(), P.SOLVER_FALLBACKS.value()
+    packers = (P.DeltaBinPacker(device=DEV), P.DeltaBinPacker(device="cpu"))
+    got = [pk.pack_or_solve(ids, rows, demands) for pk in packers]
+    check(P.SOLVER_RUNS.value() == runs0 + 2 and P.SOLVER_FALLBACKS.value() == falls0,
+          "DeltaBinPacker.pack_or_solve did not solve, or fell back")
+    check(same_bits(got[0], got[1]), "DeltaBinPacker card vs CPU")
+    t0 = time.perf_counter()
+    packers[0].pack_or_solve(ids, rows, demands)
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"sched DeltaBinPacker.pack_or_solve N={n} B={demands.shape[0]}: card {ms:.2f} ms, "
+          f"{int((got[0] >= 0).sum())} placed; card == CPU")
+    return timings
+
+
+def phase_scheduler():
+    """The scheduler slice: kernel tier, head round, other programs."""
+    import os
+
+    os.environ["RAY_TPU_SCHED_PREWARM"] = "0"  # no background warm-up in the timings
+    t0 = time.perf_counter()
+    tier = sched_kernel_tier()
+    head, st, view = sched_head_round()
+    sched_other_programs(st, view)
+    print(f"sched phase: {time.perf_counter() - t0:.1f} s")
+    return tier, head
+
+
 def main() -> None:
     phase_card_and_build()
     flash_row = phase_flash()
@@ -810,6 +1236,7 @@ def main() -> None:
     paged_launches, tps = phase_serve()
     train_launches, step_ms, train_tps = phase_train()
     phase_train_f32()
+    phase_scheduler()
     kernels = [
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",

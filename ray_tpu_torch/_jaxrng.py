@@ -1,7 +1,9 @@
 """A torch port of the parts of ``jax.random`` that decode sampling uses.
 
 Ports what ``ray_tpu/llm/continuous.py`` draws from ``jax.random``
-(``PRNGKey``, ``fold_in``, ``categorical``): threefry2x32 as in
+(``PRNGKey``, ``fold_in``, ``categorical``) and what the scheduler draws
+(``uniform``, and ``randint`` at ``ray_tpu/scheduler/hybrid.py:248``):
+threefry2x32 as in
 ``jax/_src/prng.py`` with ``jax_threefry_partitionable=True`` (the
 default in jax 0.9), the bits-to-float mapping of ``uniform``, and the
 low-range Gumbel sampler behind ``categorical``.
@@ -10,7 +12,7 @@ torch has little ``uint32`` arithmetic, so every 32-bit word is an int64
 tensor holding a value in ``[0, 2**32)``, masked after each add and shift.
 A key is an int64 tensor of shape ``[..., 2]``; leading dimensions batch
 independent keys, which is how the engine samples every slot in one call.
-Bits and uniforms are bit-identical to jax's (``tests/test_torch_jaxrng.py``).
+Bits, uniforms and randint draws are bit-identical to jax's (``tests/test_torch_jaxrng.py``).
 """
 from __future__ import annotations
 
@@ -42,17 +44,28 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
     return x[0], x[1]
 
 
+def _as_words(x, device) -> torch.Tensor:
+    """32-bit words of an int or an integer tensor, as int64. A Python int
+    is filled on the device, not copied there, so the scheduler's programs
+    build keys without a host-to-device copy that would wait on the card."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64) & _MASK
+    if isinstance(x, int) or (hasattr(x, "dtype") and getattr(x, "shape", None) == ()):
+        return torch.full((), int(x) & _MASK, dtype=torch.int64, device=device)
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & _MASK
+
+
 def prng_key(seed, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey`` of a uint32 seed (or a tensor of seeds):
     the key words are ``(seed >> 32, seed & 0xFFFFFFFF)`` = ``(0, seed)``."""
-    seed = torch.as_tensor(seed, dtype=torch.int64, device=device) & _MASK
+    seed = _as_words(seed, device)
     return torch.stack([torch.zeros_like(seed), seed], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: hash the count words ``(0, data)`` under
     ``key``. ``data`` (int or tensor) broadcasts against ``key[..., 0]``."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    data = _as_words(data, key.device)
     y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
@@ -70,7 +83,7 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     expand = (...,) + (None,) * len(shape)
     k1, k2 = key[..., 0][expand], key[..., 1][expand]
     y1, y2 = threefry2x32(k1, k2, (idx >> 32) & _MASK, idx & _MASK)
-    return (y1 ^ y2).expand(*lead, *shape)
+    return (y1 ^ y2).expand(tuple(lead) + tuple(shape))
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
@@ -80,9 +93,36 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of one key into ``num`` keys ``[num, 2]``: with
+    partitionable threefry, key ``i`` is the hash of the counts ``(0, i)``,
+    which is ``fold_in(key, i)``."""
+    return fold_in(key[None, :], torch.arange(num, device=key.device))
+
+
+def randint(key: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """One int32 draw in ``[minval, maxval)`` as ``jax.random.randint(key,
+    (), minval, maxval)`` makes it: 32 bits from each half of
+    ``split(key)``, folded into the span with uint32 arithmetic (the span
+    is 1 where ``maxval <= minval``). ``minval`` and ``maxval`` are ints or
+    0-d integer tensors on ``key``'s device; no value is read on the host."""
+    dev = key.device
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    k1, k2 = split(key)
+    higher = random_bits(k1, ())
+    lower = random_bits(k2, ())
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
+    multiplier = torch.remainder(torch.full_like(span, 1 << 16), span)
+    multiplier = torch.remainder((multiplier * multiplier) & _MASK, span)
+    offset = ((torch.remainder(higher, span) * multiplier) & _MASK) + torch.remainder(lower, span)
+    offset = torch.remainder(offset & _MASK, span)
+    return (lo + offset).to(torch.int32)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
