@@ -46,7 +46,22 @@ passes or exits non-zero:
    placement divergence 0; then the fidelity, chunked, ring, slot, bundle
    and autoscaler programs; prints ms per call, placements/s, round-latency
    p50/p99, upload/kernel/readback ms, device ops and busy share;
-7. prints the kernel table as one JSON line, then the result line.
+7. runs the local runtime (``ray_tpu_torch.init`` → ``remote`` → a
+   placement round of ``DeviceSchedulerState`` on the card → worker →
+   ``get``): bench.py's many-tasks burst (256 nodes of 4 CPUs, 10,000 no-op
+   tasks at 0.25 CPU, two passes) prints tasks/s, scheduling rounds, parks,
+   unparks and ms per ``schedule`` call (p50/p99); then, with every round's
+   inputs recorded, a functional workload whose every value is checked (a
+   100-deep ObjectRef chain, multiple returns, nested tasks, 1,000 ordered
+   actor calls, a named actor and ``kill``, PACK and STRICT_SPREAD groups
+   with tasks in them, a 64 MiB array through the native store as a
+   read-only view, ``wait`` and ``cancel``, ``kill_node`` and lineage
+   rebuild, a streaming generator, and work held past every slot that
+   parks and unparks on ``shape_slots``); each recorded round is replayed
+   on the CPU and must give the same node rows; the burst then runs again
+   on the port's CPU path. Any ERROR record of the ``ray_tpu_torch``
+   loggers ("scheduler round failed") fails the phase;
+8. prints the kernel table as one JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -119,23 +134,45 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def warm_profiler() -> None:
+    """One throwaway torch.profiler session over a few small kernels. The
+    first session of a process can come back with no device rows while
+    CUPTI attaches, so none of the measured sessions is the first."""
+    x = torch.ones(1 << 20, device=DEV)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(8):
+            x = x * 1.0001
+        torch.cuda.synchronize()
+    rows = sum(1 for e in prof.key_averages() if e.self_device_time_total > 0)
+    print(f"profiler warm-up: {rows} kernel rows with device time")
+
+
 def kernel_device_ms(fn, marker: str, iters: int = 20) -> float:
     """Device time per call of the kernels whose name holds ``marker``, as
     torch.profiler's kernel rows give it over ``iters`` calls of ``fn``: the
     kernels' own duration on the card, with no host time and no gap between
-    launches. Fails if the trace shows no such kernel."""
+    launches. A trace with no such row is taken again, up to
+    ``PROFILE_ATTEMPTS`` sessions in all; fails if none shows the kernel."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if marker in e.key and str(e.device_type).endswith("CUDA"))
-    check(us > 0, f"no device time for kernels named *{marker}* in the trace")
-    return us / iters / 1e3
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if marker in e.key and str(e.device_type).endswith("CUDA"))
+        if us > 0:
+            return us / iters / 1e3
+        print(f"profiler: session {attempt} of {PROFILE_ATTEMPTS} shows no device time "
+              f"for *{marker}*", file=sys.stderr)
+    fail(f"no device time for kernels named *{marker}* in {PROFILE_ATTEMPTS} traces")
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: torch.dtype):
@@ -181,6 +218,7 @@ def phase_card_and_build() -> None:
                 print(f"  ptxas {src}: {entry.group(1)}<{args.rstrip(',')}>")
             elif any(w in line for w in ("registers", "spill", "arning", "Performance Loss")):
                 print(f"  ptxas {src}: {line.strip()}")
+    warm_profiler()
 
 
 # ---------------------------------------------------------------------------
@@ -1083,7 +1121,7 @@ def sched_other_programs(st, view):
     from ray_tpu_torch.scheduler import bundles as B
     from ray_tpu_torch.scheduler import hybrid as H
     from ray_tpu_torch.scheduler.resources import ResourceRequest
-    from ray_tpu_torch.scheduler.unpark import select_unparkable_resilient
+    from ray_tpu_torch.scheduler.unpark import select_unparkable
 
     rng = np.random.default_rng(1)
     timings = {}
@@ -1145,29 +1183,25 @@ def sched_other_programs(st, view):
                                              ages_by_slot={i: 1.5 for i in range(8)})
     check(int(per_node.sum()) == int(placed.sum()) > 0, "ring_schedule counts")
 
-    # the unpark estimator: the device estimator runs, the host recovery not
-    calls, recovered = [0], [False]
+    # the unpark estimator on the card's resident arrays
+    calls = [0]
 
     def slots_fn(mat):
         calls[0] += 1
         return st.shape_slots(mat)
-
-    def refetch():
-        recovered[0] = True
-        return view.avail.copy(), view.alive.copy()
 
     class Spec:
         def __init__(self, res):
             self.resources = res
 
     parked = [Spec({"CPU": c}) for c in rng.choice([0.5, 1.0, 64.0], 3000)]
-    take, keep = select_unparkable_resilient(
-        parked, view.avail, view.alive, device_state=st, slots_fn=slots_fn, refetch=refetch,
+    take, keep = select_unparkable(
+        parked, view.avail, view.alive, slots_fn=slots_fn,
         is_constrained=lambda s: False, resources_of=lambda s: s.resources,
         request_of=lambda s: ResourceRequest.from_map(view.vocab, s.resources))
-    check(calls[0] == 1 and not recovered[0], "unpark: device estimator not used, or recovered")
+    check(calls[0] == 1, "unpark: device estimator not used")
     print(f"sched unpark: {len(take)} of {len(parked)} parked specs unpark by the card's "
-          f"shape_slots; host recovery not taken")
+          f"shape_slots")
 
     # placement groups: a 64-bundle group over the 10,000 nodes
     t_h, a_h, al_h = (x.cpu().numpy() for x in args[:3])
@@ -1227,6 +1261,371 @@ def phase_scheduler():
     return tier, head
 
 
+
+# --- the local runtime (init → remote → round on the card → worker → get) ---
+
+
+class _RuntimeErrors:
+    """Collects every ERROR record of the port's loggers (``ray_tpu_torch``
+    and below: "scheduler round failed", a failed unpark sync or slot
+    estimate). The scheduler thread logs and requeues a failing round, so
+    on the card a broken program would show as a hang, not an error."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        errors = self
+
+        class _Handler(logging.Handler):
+            def emit(self, record):
+                errors.records.append(record.getMessage())
+
+        self.handler = _Handler(level=logging.ERROR)
+        self.logger = logging.getLogger("ray_tpu_torch")
+        self.logger.addHandler(self.handler)
+
+    def check(self, where: str) -> None:
+        check(not self.records, f"runtime {where}: {len(self.records)} error records, first: "
+                                f"{self.records[:1]}")
+
+    def close(self) -> None:
+        self.logger.removeHandler(self.handler)
+
+
+def _instrument_runtime(rt):
+    """Counts parks, unparks and ``shape_slots`` calls, and times each
+    ``device_state.schedule`` call on the host clock, by wrapping the
+    runtime instance's own methods (nothing changes in the package)."""
+    stats = {"parks": 0, "unparks": 0, "shape_slots": 0, "schedule_ms": []}
+    park, unpark = rt._park_infeasible, rt._unpark_grantable
+
+    def _park(spec):
+        stats["parks"] += 1
+        park(spec)
+
+    def _unpark():
+        before = len(rt._infeasible)
+        unpark()
+        stats["unparks"] += before - len(rt._infeasible)
+
+    rt._park_infeasible, rt._unpark_grantable = _park, _unpark
+    st = rt.device_state
+    if st is not None:
+        schedule, slots = st.schedule, st.shape_slots
+
+        def _schedule(*a, **k):
+            t0 = time.perf_counter()
+            out = schedule(*a, **k)
+            stats["schedule_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def _slots(*a, **k):
+            stats["shape_slots"] += 1
+            return slots(*a, **k)
+
+        st.schedule, st.shape_slots = _schedule, _slots
+    return stats
+
+
+def _noop():
+    return None
+
+
+def runtime_burst(label: str, device: str, num_tasks: int = 10_000, passes: int = 2):
+    """bench.py's ``cluster_bench`` workload on the local runtime: 256 nodes
+    of 4 CPUs and 4 GiB, ``num_tasks`` no-op tasks at num_cpus=0.25 in one
+    burst (2.4× the cluster's 4,096 slots, so work parks and unparks),
+    gathered 500 at a time; ``passes`` passes after a 50-task warm-up."""
+    import ray_tpu_torch as rtt
+
+    rt = rtt.init(num_nodes=256, resources_per_node={"CPU": 4, "memory": float(4 << 30)})
+    try:
+        check(rt.device_state is not None and rt.device_state.device.type == device,
+              f"runtime {label}: the scheduler state is not on {device}")
+        check(rt.native_store is not None, f"runtime {label}: no native object store")
+        stats = _instrument_runtime(rt)
+        f = rtt.remote(_noop).options(num_cpus=0.25, max_retries=0)
+        rtt.get([f.remote() for _ in range(50)], timeout=120)
+        rates, wall = [], 0.0
+        calls0 = len(stats["schedule_ms"])
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            refs = [f.remote() for _ in range(num_tasks)]
+            for i in range(0, num_tasks, 500):
+                check(rtt.get(refs[i:i + 500], timeout=300) == [None] * len(refs[i:i + 500]),
+                      f"runtime {label}: a no-op task returned a value")
+            wall += time.perf_counter() - t0
+            rates.append(num_tasks / (time.perf_counter() - t0))
+        in_passes = sum(stats["schedule_ms"][calls0:])
+        ms = np.asarray(stats["schedule_ms"]) if stats["schedule_ms"] else np.zeros(1)
+        print(f"runtime {label}: tasks/s " + ", ".join(f"pass {i + 1} {r:.1f}"
+                                                     for i, r in enumerate(rates))
+              + f"; sched_rounds {rt.metrics['sched_rounds']}, schedule calls {len(ms)}, "
+              f"ms per schedule p50 {np.percentile(ms, 50):.3f} p99 {np.percentile(ms, 99):.3f}, "
+              f"{in_passes:.1f} ms in schedule calls over the passes' {wall * 1e3:.1f} ms "
+              f"({100 * in_passes / (wall * 1e3):.1f}%); "
+              f"parks {stats['parks']}, unparks {stats['unparks']}, "
+              f"shape_slots calls {stats['shape_slots']}; "
+              f"finished {rt.metrics['tasks_finished']}, failed {rt.metrics['tasks_failed']}")
+        check(rt.metrics["tasks_failed"] == 0, f"runtime {label}: tasks failed")
+        if rt.device_state.device.type == "cuda":
+            # one more pass under torch.profiler (not counted in tasks/s):
+            # its kernel rows over its wall time are the device's busy share
+            def one_pass():
+                refs = [f.remote() for _ in range(num_tasks)]
+                check(rtt.get(refs, timeout=300) == [None] * num_tasks,
+                      f"runtime {label}: a no-op task returned a value")
+
+            device_share(f"runtime {label} profiled pass ({num_tasks} tasks)", one_pass, 1)
+        return rates
+    finally:
+        rtt.shutdown()
+
+
+def _record_rounds():
+    """Wraps the round program so each call's inputs (resident totals,
+    avail, alive, node types, shapes, ids, ages, seed, options) and its
+    node rows are kept on the host; returns (records, restore)."""
+    from ray_tpu_torch.scheduler import hybrid as H
+
+    impl = H.hybrid_schedule_shapes_multi_impl
+    records = []
+
+    def _recorded(*args, **kwargs):
+        host = [a.detach().cpu().clone() if isinstance(a, torch.Tensor) else a for a in args]
+        kw = {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+              for k, v in kwargs.items()}
+        res = impl(*args, **kwargs)
+        records.append((host, kw, res.node.cpu().clone(), res.avail_out.cpu().clone()))
+        return res
+
+    H.hybrid_schedule_shapes_multi_impl = _recorded
+
+    def restore():
+        H.hybrid_schedule_shapes_multi_impl = impl
+
+    return records, impl, restore
+
+
+def runtime_functional(rt, rtt, stats):
+    """The task path's features on the card, every value checked."""
+    import threading
+
+    from ray_tpu_torch.core.object_store import TaskError
+    from ray_tpu_torch.core.runtime import get_context
+    from ray_tpu_torch.core.scheduling_strategies import PlacementGroupSchedulingStrategy
+
+    @rtt.remote
+    def add(a, b):
+        return a + b
+
+    ref = rtt.put(0)
+    for i in range(100):
+        ref = add.remote(ref, i)
+    check(rtt.get(ref, timeout=120) == sum(range(100)), "runtime: 100-deep chain")
+
+    @rtt.remote(num_returns=2)
+    def pair(x):
+        return x, -x
+
+    a, b = pair.remote(add.remote(3, 4))
+    check(rtt.get([a, b], timeout=60) == [7, -7], "runtime: multiple returns")
+
+    @rtt.remote
+    def outer(x):
+        return sum(rtt.get([add.remote(x, i) for i in range(4)], timeout=60))
+
+    check(rtt.get(outer.remote(10), timeout=60) == 46, "runtime: nested tasks")
+
+    @rtt.remote
+    class Log:
+        def __init__(self):
+            self.seen = []
+
+        def push(self, i):
+            self.seen.append(i)
+            return len(self.seen)
+
+        def items(self):
+            return list(self.seen)
+
+    log = Log.remote()
+    counts = rtt.get([log.push.remote(i) for i in range(1000)], timeout=120)
+    check(counts == list(range(1, 1001)), "runtime: 1,000 actor calls out of order")
+    check(rtt.get(log.items.remote(), timeout=60) == list(range(1000)),
+          "runtime: actor state out of order")
+
+    @rtt.remote
+    class Svc:
+        def ping(self):
+            return "pong"
+
+    Svc.options(name="svc").remote()
+    svc = rtt.get_actor("svc")
+    check(rtt.get(svc.ping.remote(), timeout=60) == "pong", "runtime: named actor")
+    rtt.kill(svc)
+    try:
+        rtt.get(svc.ping.remote(), timeout=10)
+        fail("runtime: a killed actor answered")
+    except rtt.GetTimeoutError:
+        fail("runtime: a call to a killed actor hung")
+    except Exception:  # noqa: BLE001 - the call must fail, not hang
+        pass
+
+    @rtt.remote(num_cpus=1)
+    def where():
+        return get_context().node_id
+
+    for strategy, same in (("PACK", True), ("STRICT_SPREAD", False)):
+        pg = rtt.placement_group([{"CPU": 1}] * 3, strategy=strategy)
+        check(rtt.get(pg.ready(), timeout=60) is True, f"runtime: {strategy} group not ready")
+        hosts = [b["node_id"] for b in rtt.placement_group_table()[pg.id]["bundles"].values()]
+        check(len(set(hosts)) == (1 if same else 3), f"runtime: {strategy} bundles on {hosts}")
+        ran = rtt.get([where.options(scheduling_strategy=PlacementGroupSchedulingStrategy(
+            placement_group=pg, placement_group_bundle_index=i)).remote() for i in range(3)],
+            timeout=60)
+        check(ran == hosts, f"runtime: {strategy} tasks ran on {ran}, bundles on {hosts}")
+        rtt.remove_placement_group(pg)
+
+    big = np.arange(16 << 20, dtype=np.float32)  # 64 MiB
+    used0 = rt.native_store.stats()["used"]
+    ref = rtt.put(big)
+    view = rtt.get(ref, timeout=60)
+    check(rt.native_store.stats()["used"] - used0 >= big.nbytes, "runtime: 64 MiB not in the arena")
+    check(not view.flags.writeable and not view.flags.owndata,
+          "runtime: the arena's array is not a read-only view")
+    check(np.array_equal(view, big), "runtime: 64 MiB array differs")
+
+    @rtt.remote
+    def total(x):
+        return float(x[-1]) + float(x[1])
+
+    check(rtt.get(total.remote(ref), timeout=60) == float(big[-1]) + 1.0,
+          "runtime: a task read the arena's array wrong")
+    del view, ref
+
+    @rtt.remote
+    def slow(t):
+        time.sleep(t)
+        return t
+
+    fast_ref, slow_ref = slow.remote(0.0), slow.remote(2.0)
+    ready, rest = rtt.wait([slow_ref, fast_ref], num_returns=1, timeout=30)
+    check(ready == [fast_ref] and rest == [slow_ref], "runtime: wait picked the wrong ref")
+    stuck = add.options(num_cpus=10_000).remote(1, 2)  # parks: no node has it
+    deadline = time.monotonic() + 30
+    while not any(stuck.hex in s.return_ids for s in list(rt._infeasible)):
+        check(time.monotonic() < deadline, "runtime: the oversized task never parked")
+        time.sleep(0.01)
+    rtt.cancel(stuck)
+    try:
+        rtt.get(stuck, timeout=10)
+        fail("runtime: a cancelled task returned")
+    except TaskError:
+        pass
+    check(rtt.get(slow_ref, timeout=30) == 2.0, "runtime: slow task")
+
+    calls = []
+
+    @rtt.remote(num_cpus=1)
+    def produce():
+        calls.append(1)
+        return ("data", get_context().node_id)
+
+    ref = produce.remote()
+    _, node = rtt.get(ref, timeout=60)
+    rt.kill_node(node)
+    data, node2 = rtt.get(ref, timeout=60)  # rebuilt through its lineage
+    check(data == "data" and node2 != node and len(calls) == 2, "runtime: lineage rebuild")
+
+    def count(n):
+        for i in range(n):
+            yield i * i
+
+    gen = rtt.remote(count).options(num_returns="streaming", num_cpus=0.5).remote(8)
+    items = [rtt.get(gen.next_ref(timeout=60), timeout=60) for _ in range(8)]
+    check(items == [i * i for i in range(8)], "runtime: streaming generator")
+    try:
+        gen.next_ref(timeout=60)
+        fail("runtime: the stream did not end")
+    except StopIteration:
+        pass
+
+    # fill every slot with held tasks, so the next ones park; opening the
+    # gate frees the slots and the parked work unparks on shape_slots
+    gate = threading.Event()
+
+    @rtt.remote(num_cpus=0.25, max_retries=0)
+    def held():
+        gate.wait(120)
+        return 1
+
+    slots = int(rtt.cluster_resources()["CPU"] / 0.25)
+    parks0, unparks0, slots0 = stats["parks"], stats["unparks"], stats["shape_slots"]
+    refs = [held.remote() for _ in range(slots + 2000)]
+    deadline = time.monotonic() + 60
+    while stats["parks"] - parks0 < 2000:
+        check(time.monotonic() < deadline, "runtime: work beyond the slots never parked")
+        time.sleep(0.01)
+    gate.set()
+    check(sum(rtt.get(refs, timeout=300)) == slots + 2000, "runtime: held tasks")
+    check(stats["unparks"] - unparks0 >= 2000 and stats["shape_slots"] > slots0,
+          "runtime: parked work did not unpark through shape_slots")
+
+
+def phase_runtime():
+    """The local runtime on the card: the many-tasks burst (card, then the
+    port's CPU path in a fresh runtime), the functional workload with every
+    round recorded, and each recorded round replayed on the CPU."""
+    import os
+
+    import ray_tpu_torch as rtt
+
+    os.environ["RAY_TPU_SCHED_PREWARM"] = "0"  # no background warm-up in the timings
+    os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)  # the default: cuda
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    try:
+        card = runtime_burst("card", "cuda")
+        errors.check("burst on the card")
+        records, impl, restore = _record_rounds()
+        try:
+            rt = rtt.init(num_nodes=256, resources_per_node={"CPU": 4, "memory": float(4 << 30)})
+            try:
+                check(rt.device_state is not None and rt.device_state.device.type == "cuda",
+                      "runtime: the scheduler state is not on the card")
+                check(rt.native_store is not None, "runtime: no native object store")
+                stats = _instrument_runtime(rt)
+                runtime_functional(rt, rtt, stats)
+                print(f"runtime functional workload on the card: every value right; "
+                      f"sched_rounds {rt.metrics['sched_rounds']}, parks {stats['parks']}, "
+                      f"unparks {stats['unparks']}, shape_slots calls {stats['shape_slots']}")
+            finally:
+                rtt.shutdown()
+        finally:
+            restore()
+        errors.check("functional workload")
+        check(len(records) > 0, "runtime: no round was recorded")
+        for i, (args, kw, node, avail_out) in enumerate(records):
+            res = impl(*args, **kw)
+            check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
+                  f"runtime: round {i} of {len(records)} replays differently on the CPU")
+        print(f"runtime replay: {len(records)} card rounds replayed on the CPU, every node row "
+              f"and avail_out equal")
+        os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
+        try:
+            cpu = runtime_burst("CPU path", "cpu")
+        finally:
+            os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
+        errors.check("burst on the CPU path")
+    finally:
+        errors.close()
+    print(f"runtime tasks/s card {', '.join(f'{r:.1f}' for r in card)}; "
+          f"CPU path {', '.join(f'{r:.1f}' for r in cpu)}")
+    print(f"runtime phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     phase_card_and_build()
     flash_row = phase_flash()
@@ -1237,6 +1636,7 @@ def main() -> None:
     train_launches, step_ms, train_tps = phase_train()
     phase_train_f32()
     phase_scheduler()
+    phase_runtime()
     kernels = [
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",

@@ -131,7 +131,7 @@ define(
 define(
     "sched_init_timeout_s",
     30.0,
-    "XLA backend bring-up budget before degrading to the host scheduler.",
+    "Scheduler device bring-up budget at init(); the runtime raises past it.",
 )
 define(
     "sched_device_min_batch",

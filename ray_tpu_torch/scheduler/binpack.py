@@ -7,12 +7,18 @@ deduped (shape, count) pairs with its exact waterfall extraction, and the
 device-resident ``DeltaBinPacker``. They run as torch programs on the
 tensors' device (``cuda`` unless the caller passes ``device="cpu"``).
 
-The solve's fractional allocation only orders the extraction's nodes. Its
-sums over the node and shape axes use one fixed pairwise tree and its sums
-over the resource axis are column-ordered, so the card and the CPU give the
-same bits; XLA's CPU compiler sums those axes in another order, so the
-allocation can differ from JAX's in its last bits (the integral placements
-are held equal by the parity tests).
+The solve's fractional allocation only orders the extraction's nodes. Up
+to 32 nodes it follows XLA's CPU order as a probe of it showed it: the load
+``einsum("un,ur->nr")`` is a sequential FMA over the shapes (emulated
+exactly, ``_fma_sum``), and the node sums run node after node. Above 32
+nodes XLA vectorizes its node sums in an order not yet matched, so the
+allocation cannot follow JAX's bits there whatever the load does; the port
+takes one fixed pairwise tree for the node sums and for the load, whose
+emulated FMA chain (shapes × iterations steps of a dozen ops each) would
+cost several times the whole solve on the card. The ``ur,nr->un``
+gradient is a pairwise tree over the resources at every size. Every op is
+elementwise or a fixed-order sum, so the card and the CPU give the same
+bits.
 """
 from __future__ import annotations
 
@@ -102,6 +108,53 @@ def _capacity(avail, d, dm, fallback):
     return torch.where(torch.any(dm), torch.clamp(cap, min=0.0), fallback)
 
 
+def _fma_round(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``fma(a, b, c)`` from the exact f64 product ``p = a·b``: the f64
+    sum rounded to odd (TwoSum's error term picks the neighbour), then to
+    f32, which rounds once, as a fused multiply-add does. Elementwise, so
+    the card and the CPU agree."""
+    c = c.to(torch.float64)
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, err * _INF), s)
+    return s.to(torch.float32)
+
+
+def _fma_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """f32[N,R] ``einsum("un,ur->nr", x, y)`` accumulated shape after shape
+    with fused multiply-adds: XLA's CPU order for this contraction."""
+    x64, y64 = x.to(torch.float64), y.to(torch.float64)
+    acc = torch.zeros((x.shape[1], y.shape[1]), dtype=torch.float32, device=x.device)
+    for i in range(x.shape[0]):
+        acc = _fma_round(x64[i][:, None] * y64[i][None, :], acc)
+    return acc
+
+
+_SEQ_NODES = 32  # XLA's CPU compiler sums up to this many nodes in order
+
+
+def _load(x: torch.Tensor, shapes: torch.Tensor) -> torch.Tensor:
+    """f32[N,R] ``einsum("un,ur->nr", x, shapes)``: XLA's FMA chain up to
+    ``_SEQ_NODES`` nodes, one pairwise tree over the shapes above."""
+    if x.shape[1] <= _SEQ_NODES:
+        return _fma_sum(x, shapes)
+    return _tree_sum(x[:, :, None] * shapes[:, None, :], 0)
+
+
+def _node_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (node) axis: node after node up to 32 nodes, as
+    XLA's CPU compiler does; one fixed pairwise tree above."""
+    n = x.shape[-1]
+    if n == 0 or n > _SEQ_NODES:
+        return _tree_sum(x, -1)
+    s = x[..., 0]
+    for i in range(1, n):
+        s = s + x[..., i]
+    return s
+
+
 def solve_pack_counts(nodes_avail, shapes, counts, *, iters: int = 24,
                       device=None) -> SolveResult:
     """Projected-gradient residual packing over (shape, count) pairs (see
@@ -125,16 +178,16 @@ def solve_pack_counts(nodes_avail, shapes, counts, *, iters: int = 24,
     for _ in range(iters):
         # (a) fill: distribute unserved count over remaining headroom
         head = torch.clamp(cap0 - x, min=0.0)
-        head_sum = torch.clamp(_tree_sum(head, 1), min=_EPS)[:, None]
-        slack = torch.clamp(counts - _tree_sum(x, 1), min=0.0)
+        head_sum = torch.clamp(_node_sum(head), min=_EPS)[:, None]
+        slack = torch.clamp(counts - _node_sum(x), min=0.0)
         x = x + (slack[:, None] * head) / head_sum
         # (b) repair: gradient step down the capacity violation
-        load = _tree_sum(x[:, :, None] * shapes[:, None, :], 0)            # [N,R]
+        load = _load(x, shapes)                                        # [N,R]
         over = torch.clamp(load - nodes_avail, min=0.0)
-        grad = _colsum(shapes[:, None, :] * over[None, :, :])              # [U,N]
+        grad = _tree_sum(shapes[:, None, :] * over[None, :, :], -1)    # [U,N]
         x = torch.clamp(x - grad / scale[:, None], min=0.0)
         # (c) project: never allocate more than the shape's count
-        tot = torch.clamp(_tree_sum(x, 1), min=_EPS)
+        tot = torch.clamp(_node_sum(x), min=_EPS)
         x = x * torch.clamp(counts / tot, max=1.0)[:, None]
 
     avail_run = nodes_avail

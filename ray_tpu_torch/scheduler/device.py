@@ -28,8 +28,9 @@ placed by count).
 There is no fallback: a ``cuda`` platform without CUDA raises. The
 reference's jit cache, persistent compile cache and background compiles
 have no eager counterpart; ``prewarm`` runs one warm-up round per bucket.
-``LazyDeviceState`` (its bring-up timeout and host degrade) is not ported
-yet: its callers, the local runtime and the head, are not ported either.
+``bring_up_device_state`` keeps the reference's bring-up timeout but not
+its degrade to the host golden model: the card is used or the runtime
+fails.
 """
 from __future__ import annotations
 
@@ -714,3 +715,40 @@ class DeviceSchedulerState:
         )
         _live_prewarms.append(self._prewarm_thread)
         self._prewarm_thread.start()
+
+
+def bring_up_device_state(timeout_s: Optional[float] = None) -> DeviceSchedulerState:
+    """The runtime's DeviceSchedulerState on ``cfg.sched_platform``, brought
+    up (the state and one round trip through the device) within
+    ``sched_init_timeout_s``, or a RuntimeError naming the platform and the
+    timeout: CUDA absent, bring-up failed, or out of time.
+
+    The reference's ``LazyDeviceState`` (``ray_tpu/scheduler/device.py:273``)
+    defers bring-up to the first round and, past its timeout, quietly
+    schedules on the NumPy golden model. The port does neither: the runtime
+    calls this at ``init()``, and the golden model runs only when asked for
+    (``use_device_scheduler=False`` or ``RAY_TPU_DEVICE_SCHEDULER=0``).
+    """
+    from ..config import cfg
+
+    timeout_s = cfg.sched_init_timeout_s if timeout_s is None else timeout_s
+    platform = cfg.sched_platform
+    box: Dict[str, object] = {}
+
+    def _init() -> None:
+        try:
+            state = DeviceSchedulerState(platform)
+            torch.zeros(1, device=state.device).add_(1).cpu()
+            box["state"] = state
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            box["error"] = exc
+
+    t = threading.Thread(target=_init, name="sched-device-init", daemon=True)
+    t.start()
+    t.join(timeout=timeout_s)
+    where = f"scheduler platform {platform!r} (sched_init_timeout_s={timeout_s})"
+    if t.is_alive():
+        raise RuntimeError(f"{where}: the device did not come up in time")
+    if "error" in box:
+        raise RuntimeError(f"{where}: bring-up failed: {box['error']}") from box["error"]
+    return box["state"]

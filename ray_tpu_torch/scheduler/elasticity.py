@@ -718,7 +718,7 @@ class ElasticityController:
                     seen.add(id(s))
                     k = _shape_key_of(s)
                     deferred[k] = deferred.get(k, 0) + 1
-            device_state = head._lazy_device._result
+            device_state = head.device_state
             ring_keys = (
                 list(device_state.ring_keys())
                 if device_state is not None

@@ -1,6 +1,8 @@
 """Capacity-capped unparking of infeasible-queued work.
 
-Port of ``ray_tpu/scheduler/unpark.py``, copied.
+Port of ``ray_tpu/scheduler/unpark.py``, copied without the reference's
+``select_unparkable_resilient``, which redoes the scan on the host when the
+device estimator fails: in the port a failing ``slots_fn`` raises.
 
 Shared by the cluster head and the in-process runtime: re-feeding the
 ENTIRE parked queue into the pending queue on every capacity-freeing
@@ -18,50 +20,16 @@ Slot estimation has two backends: the host NumPy scan (one pass per
 shape over a fresh copy of the availability arrays — the original), and
 ``slots_fn`` — a batched estimator over the scheduler device's RESIDENT
 arrays (``DeviceSchedulerState.shape_slots``: one kernel dispatch for
-ALL shapes, no host copy, no re-upload). The head passes the device
+ALL shapes, no host copy, no re-upload). The runtime passes the device
 estimator whenever the device scheduler is live.
 """
 from __future__ import annotations
 
-import logging
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 
-logger = logging.getLogger(__name__)
-
 UNPARK_SLACK = 32
-
-
-def select_unparkable_resilient(
-    parked: List[Any],
-    avail: Optional[np.ndarray],
-    alive: Optional[np.ndarray],
-    *,
-    device_state: Any,
-    slots_fn: Optional[Callable[[np.ndarray], np.ndarray]],
-    refetch: Callable[[], Tuple[np.ndarray, np.ndarray]],
-    **kwargs: Any,
-) -> Tuple[List[Any], List[Any]]:
-    """``select_unparkable`` with the device-estimator survival contract
-    shared by the head and the single-process runtime: a ``slots_fn``
-    failure (it dispatches on the scheduler device mid-scan) must not
-    kill the caller's scheduler thread — invalidate the device mirror
-    (full re-sync next round) and redo the scan host-side on fresh
-    copies from ``refetch`` (called under the caller's locking
-    discipline). A raise on the pure-NumPy path is a real bug and
-    propagates."""
-    try:
-        return select_unparkable(
-            parked, avail, alive, slots_fn=slots_fn, **kwargs
-        )
-    except Exception:  # noqa: BLE001 - scheduler must survive
-        if slots_fn is None:
-            raise
-        logger.exception("device slot estimation failed; host scan")
-        device_state.invalidate()
-        a0, al0 = refetch()
-        return select_unparkable(parked, a0, al0, slots_fn=None, **kwargs)
 
 
 def select_unparkable(

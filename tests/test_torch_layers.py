@@ -89,7 +89,8 @@ def test_attention_reference_bf16():
     np.testing.assert_allclose(got, want, rtol=0, atol=3e-2)
 
 
-def test_import_pulls_in_neither_jax_nor_ray_tpu():
+def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
+    monkeypatch.setenv("RAY_TPU_SCHED_PLATFORM", "cpu")
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch._cuda, ray_tpu_torch._jaxrng\n"
@@ -106,6 +107,11 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu():
         "p = tfm.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
         "opt = torch.optim.AdamW([x.requires_grad_() for x in tfm.param_leaves(p)])\n"
         "tfm.make_train_step(cfg, opt)(p, torch.randint(0, 32, (1, 9)))\n"
+        "rt = ray_tpu_torch.init(num_nodes=1, resources_per_node={'CPU': 2})\n"
+        "assert rt.device_state.device.type == 'cpu'\n"
+        "f = ray_tpu_torch.remote(lambda x: x + 1)\n"
+        "assert ray_tpu_torch.get(f.remote(1), timeout=60) == 2\n"
+        "ray_tpu_torch.shutdown()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(','.join(bad))\n"

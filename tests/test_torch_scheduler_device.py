@@ -34,7 +34,7 @@ from ray_tpu_torch.scheduler.resources import (
     from_fp,
     to_fp,
 )
-from ray_tpu_torch.scheduler.unpark import select_unparkable, select_unparkable_resilient
+from ray_tpu_torch.scheduler.unpark import select_unparkable
 
 
 def make_view(n_nodes=4, cpu=8.0, mem=64.0, cls=(ResourceVocab, ClusterView)):
@@ -417,9 +417,8 @@ def test_select_unparkable_device_estimator_agrees_with_host():
     assert len(take_d) == len(take_h) == 12 and len(keep_d) == len(keep_h)
 
 
-def test_select_unparkable_resilient_recovers_on_the_host():
-    """A failing device estimator invalidates the mirror and the scan is
-    redone on the host (the reference's recovery, kept as it is)."""
+def test_select_unparkable_device_estimator_failure_raises():
+    """A failing device estimator raises: no host scan stands in for it."""
     vocab, view = make_view(2, cpu=2.0)
     st = cpu_state()
     st.sync(view)
@@ -428,11 +427,9 @@ def test_select_unparkable_resilient_recovers_on_the_host():
     def broken(mat):
         raise RuntimeError("estimator died")
 
-    take, keep = select_unparkable_resilient(
-        parked, view.avail, view.alive, device_state=st, slots_fn=broken,
-        refetch=lambda: (view.avail.copy(), view.alive.copy()), **_unpark_common(vocab))
-    assert len(take) == 12 and len(keep) == 88
-    assert st._synced_topo == -1  # the next sync re-uploads everything
+    with pytest.raises(RuntimeError, match="estimator died"):
+        select_unparkable(parked, view.avail, view.alive, slots_fn=broken,
+                          **_unpark_common(vocab))
 
 
 def test_delta_binpacker_matches_direct_pack():

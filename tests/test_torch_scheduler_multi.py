@@ -3,15 +3,13 @@ autoscaler's solve on the port, mirroring ``tests/test_multi_objective.py``:
 each case runs the JAX program and the port on the same inputs, asserts the
 reference's property on the port, and holds integer outputs equal.
 
-``solve_pack_counts`` is the one program whose integral output is not held
-bit for bit: its fractional allocation only orders each shape's nodes, and
-XLA's CPU compiler sums that allocation in another order. The first op
-that diverges is the load ``jnp.einsum("un,ur->nr", x, shapes)``
-(``ray_tpu/scheduler/binpack.py:162``): XLA accumulates it over the shapes
-with FMAs, the port by a pairwise tree of separate products and adds; the
-``ur,nr->un`` gradient and the sums over more than 32 nodes follow. The
-seeds where the per-node placements differ are kept below: on them the
-placed counts are equal and both packings respect every node's capacity.
+``solve_pack_counts`` sums its fractional allocation in XLA's CPU order at
+these sizes (30 nodes): the load ``jnp.einsum("un,ur->nr", x, shapes)``
+(``ray_tpu/scheduler/binpack.py:162``) as a sequential FMA over the shapes,
+the ``ur,nr->un`` gradient as a tree over the resources, and the node sums
+node after node. ``SOLVE_DIVERGES`` lists the seeds where the per-node
+placements still differ from JAX's; on them the placed counts are equal
+and both packings respect every node's capacity.
 """
 import numpy as np
 import pytest
@@ -176,7 +174,7 @@ def _solve_inputs(seed, quant):
 
 
 # (seed, quant) pairs where the per-node placements differ from JAX's
-SOLVE_DIVERGES = {(2, 64), (2, 10_000), (7, 64), (7, 10_000)}
+SOLVE_DIVERGES = set()
 
 
 @pytest.mark.parametrize("quant", [64, 10_000], ids=["q64", "q1e-4"])
