@@ -61,7 +61,24 @@ passes or exits non-zero:
    on the CPU and must give the same node rows; the burst then runs again
    on the port's CPU path. Any ERROR record of the ``ray_tpu_torch``
    loggers ("scheduler round failed") fails the phase;
-8. prints the kernel table as one JSON line, then the result line.
+8. runs the multi-process cluster (``Cluster()``: the head in this process
+   with its ``DeviceSchedulerState`` on the card and
+   ``sched_device_min_batch`` 0, node-agent and worker subprocesses that
+   never touch the card before a task asks for it): bench.py's
+   ``cluster_bench`` (two agents of 16 CPUs × 4 workers, 50 warm-up tasks,
+   two passes of 10,000 no-op tasks at 0.25 CPU, ``get`` in chunks of 500)
+   prints tasks/s, the head's rounds per pass, lease-cache hits and misses
+   and the rounds' round/upload/kernel/readback ms (p50/p99); then, with
+   every head round recorded, a functional workload whose every value is
+   checked (ObjectRef arguments across nodes, 64 MiB between agents, 1,000
+   ordered actor calls, a named actor and ``kill``, STRICT_SPREAD and PACK
+   groups, a GPU agent whose worker computes a seeded product on the card
+   under its lease's ``CUDA_VISIBLE_DEVICES``, a head restart from its WAL
+   with the new head's state on the card, leased tasks then ``kill_node``
+   and a lineage rebuild); each recorded round (the parked-demand ring's
+   from the card burst on) is replayed on the CPU; the burst runs again
+   with the head on the port's CPU path. Any ERROR record fails the phase;
+9. prints the kernel table as one JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -1626,6 +1643,366 @@ def phase_runtime():
     print(f"runtime phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --- the multi-process cluster (head rounds on the card, agents, workers) ---
+
+SCHED_HISTS = ("round_ms", "upload_ms", "kernel_ms", "readback_ms")
+
+
+def _sched_hists():
+    from ray_tpu_torch.cluster.head import SCHED_ROUND_MS
+    from ray_tpu_torch.scheduler.device import (
+        SCHED_KERNEL_MS,
+        SCHED_READBACK_MS,
+        SCHED_UPLOAD_MS,
+    )
+
+    return dict(zip(SCHED_HISTS, (SCHED_ROUND_MS, SCHED_UPLOAD_MS, SCHED_KERNEL_MS,
+                                  SCHED_READBACK_MS)))
+
+
+def _hist_marks():
+    return {k: (h.summary()["count"], h.summary()["sum"], h.buckets_snapshot())
+            for k, h in _sched_hists().items()}
+
+
+def _cluster(device: str, **kwargs):
+    """A ``Cluster`` whose head state is on ``device``; checks the state and
+    that every round goes to the device (``sched_device_min_batch`` 0)."""
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.config import cfg
+
+    c = Cluster(**kwargs)
+    check(c.head.device_state is not None and c.head.device_state.device.type == device,
+          f"cluster: the head's scheduler state is not on {device}")
+    check(cfg.sched_device_min_batch == 0,
+          f"cluster: sched_device_min_batch is {cfg.sched_device_min_batch}, not 0")
+    return c
+
+
+def cluster_burst(label: str, device: str, num_tasks: int = 10_000, passes: int = 2):
+    """bench.py's ``cluster_bench``, unchanged in shape: a head, two agents
+    of 16 CPUs with 4 workers each, 50 warm-up tasks, then ``passes`` passes
+    of ``num_tasks`` no-op tasks at num_cpus=0.25, gathered 500 at a time.
+    Under task leases most of a pass streams to cached worker leases and
+    never reaches the head, so the head's rounds are printed beside the
+    tasks/s: those tasks/s are not the card's."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    c = _cluster(device)
+    marks = _hist_marks()  # the head's rounds of this cluster, warm-up included
+    try:
+        c.add_node({"CPU": 16.0}, num_workers=4)
+        c.add_node({"CPU": 16.0}, num_workers=4)
+        client = c.client()
+        set_runtime(client)
+        try:
+            f = rtt.remote(_noop).options(num_cpus=0.25, max_retries=0)
+            check(rtt.get([f.remote() for _ in range(50)], timeout=120) == [None] * 50,
+                  f"cluster {label}: a warm-up task returned a value")
+            hits0 = client.metrics["lease_cache_hits"]
+            misses0 = client.metrics["lease_cache_misses"]
+            rates, rounds = [], []
+            for _ in range(passes):
+                r0 = c.head.metrics["sched_rounds"]
+                t0 = time.perf_counter()
+                refs = [f.remote() for _ in range(num_tasks)]
+                for i in range(0, num_tasks, 500):
+                    check(rtt.get(refs[i:i + 500], timeout=300) == [None] * len(refs[i:i + 500]),
+                          f"cluster {label}: a no-op task returned a value")
+                rates.append(num_tasks / (time.perf_counter() - t0))
+                rounds.append(c.head.metrics["sched_rounds"] - r0)
+            sched = c.head._h_query_state({"kind": "sched"})
+            hists = _sched_hists()
+            lat = {k: hist_delta(hists[k], marks[k]) for k in SCHED_HISTS}
+            n_obs = {k: hists[k].summary()["count"] - marks[k][0] for k in SCHED_HISTS}
+            hits = client.metrics["lease_cache_hits"] - hits0
+            misses = client.metrics["lease_cache_misses"] - misses0
+            print(f"cluster {label}: tasks/s " + ", ".join(
+                f"pass {i + 1} {r:.1f} ({n} head rounds)"
+                for i, (r, n) in enumerate(zip(rates, rounds)))
+                + f"; lease cache hits {hits}, misses {misses} over the passes; head "
+                f"sched_rounds {sched['sched_rounds']} in all, device rounds "
+                f"{(sched['device'] or {}).get('rounds')}, ring rounds "
+                f"{(sched['device'] or {}).get('ring_rounds')}")
+            print(f"cluster {label} head rounds' latency, warm-up and passes (ms, p50/p99 over "
+                  f"n): " + "; ".join(f"{k} {p50:.3f}/{p99:.3f} over {n_obs[k]}"
+                                      for k, (_, p50, p99) in lat.items()))
+            return rates, rounds
+        finally:
+            set_runtime(None)
+            client.shutdown()
+    finally:
+        c.shutdown()
+
+
+def _record_ring_rounds():
+    """As ``_record_rounds``, for the parked-demand ring's program (the
+    head's unpark rounds): each call's inputs and all four outputs kept on
+    the host; returns (records, impl, restore)."""
+    from ray_tpu_torch.scheduler import hybrid as H
+
+    impl = H.ring_schedule_impl
+    records = []
+
+    def host(x):
+        return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
+
+    def _recorded(*args, **kwargs):
+        res = impl(*args, **kwargs)
+        records.append(([host(a) for a in args], {k: host(v) for k, v in kwargs.items()},
+                        [host(t) for t in res]))
+        return res
+
+    H.ring_schedule_impl = _recorded
+
+    def restore():
+        H.ring_schedule_impl = impl
+
+    return records, impl, restore
+
+
+def _vec(n, seed):
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+def _dot64(a, b):
+    return float(np.dot(a.astype(np.float64), b.astype(np.float64)))
+
+
+def _sum64(a):
+    return a.shape, a.dtype.str, float(a.astype(np.float64).sum()), bool(a.flags.writeable)
+
+
+def _node_of():
+    import os
+
+    return os.environ.get("RAY_TPU_NODE_ID")
+
+
+def _payload(i, n):
+    return bytes([i % 251]) * n
+
+
+def _gpu_product(seed, n):
+    """In a worker: the lease's CUDA_VISIBLE_DEVICES, whether CUDA was
+    initialised before this task (the zygote and the worker must not touch
+    it), and a seeded f32 product computed on the card."""
+    import os
+
+    import torch as th
+
+    before = th.cuda.is_initialized()
+    g = th.Generator().manual_seed(seed)
+    a, b = th.randn(n, n, generator=g), th.randn(n, n, generator=g)
+    out = (a.to("cuda") @ b.to("cuda")).cpu().numpy()
+    return before, os.environ.get("CUDA_VISIBLE_DEVICES"), th.cuda.get_device_name(0), out
+
+
+class _Ordered:
+    def __init__(self):
+        self.seen = []
+
+    def push(self, i):
+        self.seen.append(i)
+        return len(self.seen)
+
+    def log(self):
+        return list(self.seen)
+
+
+def cluster_gpu_task(c, rtt):
+    """A third agent with one GPU runs a num_gpus=1 task; the driver holds
+    the worker's card product against the CPU's."""
+    c.add_node({"CPU": 2.0, "GPU": 1.0}, num_workers=1)
+    before, visible, name, out = rtt.get(
+        rtt.remote(_gpu_product).options(num_gpus=1, num_cpus=1).remote(7, 256), timeout=180)
+    check(not before, "cluster: CUDA was initialised in the worker before its GPU task")
+    check(visible == "0", f"cluster: the GPU worker saw CUDA_VISIBLE_DEVICES={visible!r}")
+    g = torch.Generator().manual_seed(7)
+    a, b = torch.randn(256, 256, generator=g), torch.randn(256, 256, generator=g)
+    err = float(np.abs(out - (a @ b).numpy()).max())
+    check(err <= 1e-3, f"cluster: the worker's card product is off the CPU's by {err:.3g}")
+    print(f"cluster GPU task: a worker on {name} with CUDA_VISIBLE_DEVICES={visible}, "
+          f"product max abs err {err:.3g} against the CPU (tolerance 1e-3)")
+
+
+def cluster_functional(c, client, rtt):
+    """The cluster's features with the head on the card, every value checked."""
+    from ray_tpu_torch.core.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+        PlacementGroupSchedulingStrategy,
+    )
+
+    n1, n2 = sorted(n["NodeID"] for n in rtt.nodes() if n["Alive"])
+
+    def on(nid):
+        return NodeAffinitySchedulingStrategy(node_id=nid, soft=False)
+
+    # ObjectRef arguments across nodes, and 64 MiB moved between agents
+    a = rtt.remote(_vec).options(scheduling_strategy=on(n1)).remote(100_000, 1)
+    b = rtt.remote(_vec).options(scheduling_strategy=on(n2)).remote(100_000, 2)
+    dot = rtt.get(rtt.remote(_dot64).options(scheduling_strategy=on(n2)).remote(a, b),
+                  timeout=120)
+    check(dot == _dot64(_vec(100_000, 1), _vec(100_000, 2)), "cluster: cross-node dot is wrong")
+    big = rtt.remote(_vec).options(scheduling_strategy=on(n1)).remote(16 << 20, 3)
+    want = _vec(16 << 20, 3)
+    got = rtt.get(rtt.remote(_sum64).options(scheduling_strategy=on(n2)).remote(big), timeout=180)
+    check(got[:3] == ((16 << 20,), "<f4", float(want.astype(np.float64).sum())),
+          f"cluster: the 64 MiB array arrived wrong: {got}")
+    check(np.array_equal(rtt.get(big, timeout=180), want), "cluster: 64 MiB get is wrong")
+
+    # 1,000 ordered actor calls, a named actor, and a kill
+    Ordered = rtt.remote(_Ordered)
+    act = Ordered.options(name="ordered").remote()
+    lens = rtt.get([act.push.remote(i) for i in range(1000)], timeout=180)
+    check(lens == list(range(1, 1001)), "cluster: actor calls returned out of order")
+    again = rtt.get_actor("ordered")
+    check(rtt.get(again.log.remote(), timeout=60) == list(range(1000)),
+          "cluster: the actor ran its calls out of order")
+    rtt.kill(again)
+    time.sleep(0.3)
+    try:
+        rtt.get(again.log.remote(), timeout=20)
+        fail("cluster: a killed actor still answered")
+    except Exception:  # noqa: BLE001 - any error is the expected death
+        pass
+
+    # STRICT_SPREAD and PACK groups over the two nodes
+    for strategy, bundles in (("STRICT_SPREAD", [{"CPU": 1.0}, {"CPU": 1.0}]),
+                              ("PACK", [{"CPU": 1.0}] * 3)):
+        pg = rtt.placement_group(bundles, strategy=strategy)
+        check(pg.wait(60), f"cluster: the {strategy} group was never placed")
+        where = rtt.get([
+            rtt.remote(_node_of).options(
+                num_cpus=1, scheduling_strategy=PlacementGroupSchedulingStrategy(
+                    placement_group=pg, placement_group_bundle_index=i)).remote()
+            for i in range(len(bundles))], timeout=120)
+        distinct = len(set(where))
+        check(distinct == (len(bundles) if strategy == "STRICT_SPREAD" else 1),
+              f"cluster: {strategy} tasks ran on {where}")
+        rtt.remove_placement_group(pg)
+
+    cluster_gpu_task(c, rtt)
+
+    # a head restart: earlier refs resolve, new tasks run, the new head's
+    # state is again on the card
+    c.restart_head()
+    check(c.head.device_state is not None and c.head.device_state.device.type == "cuda",
+          "cluster: the restarted head's state is not on the card")
+    deadline = time.monotonic() + 60
+    while sum(1 for n in rtt.nodes() if n["Alive"]) < 3:
+        check(time.monotonic() < deadline, "cluster: agents did not re-register after restart")
+        time.sleep(0.2)
+    check(np.array_equal(rtt.get(big, timeout=120), want),
+          "cluster: a pre-restart ref does not resolve after the head restart")
+    check(rtt.get(rtt.remote(_dot64).remote(a, b), timeout=120) == dot,
+          "cluster: a task on pre-restart refs is wrong after the head restart")
+    inc = rtt.remote(_payload).options(num_cpus=0.5)
+    check(rtt.get([inc.remote(i, 8) for i in range(20)], timeout=120)
+          == [bytes([i]) * 8 for i in range(20)], "cluster: new tasks after the restart")
+
+    # leased tasks, then kill_node and a lineage rebuild
+    task = rtt.remote(_payload)
+    hits0 = client.metrics["lease_cache_hits"]
+    refs = []
+    for wave in range(6):
+        batch = [task.options(max_retries=3).remote(wave * 8 + k, 150_000) for k in range(8)]
+        refs.extend(batch)
+        for r in batch:
+            rtt.get(r, timeout=120)
+    check(client.metrics["lease_cache_hits"] > hits0, "cluster: no task rode a worker lease")
+    head = c.head
+    with head._lock:
+        held = [(i, r, set(head._objects[r.hex].locations)) for i, r in enumerate(refs)
+                if r.hex in head._objects and head._objects[r.hex].locations]
+    check(bool(held), "cluster: no leased object is store-resident")
+    idx, victim, locs = held[-1]
+    with client._direct_cv:
+        client._direct_results.pop(victim.hex, None)
+    for nid in locs:
+        c.kill_node(nid)
+    c.add_node({"CPU": 16.0}, num_workers=4)
+    check(rtt.get(victim, timeout=180) == bytes([idx % 251]) * 150_000,
+          "cluster: the lost leased object was not rebuilt")
+    print(f"cluster lineage: killed {sorted(locs)}, rebuilt a leased object; lineage "
+          f"resubmits {client.metrics['lineage_resubmits']}")
+
+
+def phase_cluster():
+    """The multi-process cluster with the head's rounds on the card:
+    bench.py's cluster burst (card, then the port's CPU path in a fresh
+    cluster), the functional workload, and each recorded head round (the
+    ring's from the card burst on, the pipelined ones in the functional
+    workload: recording reads each back, which the ring does anyway)
+    replayed on the CPU."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    os.environ["RAY_TPU_SCHED_PREWARM"] = "0"
+    os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)  # the default: cuda
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    ring_records, ring_impl, ring_restore = _record_ring_rounds()
+    restores = [ring_restore]
+    try:
+        card, card_rounds = cluster_burst("card", "cuda")
+        errors.check("cluster burst on the card")
+        records, impl, restore = _record_rounds()
+        restores.append(restore)
+        os.environ["RAY_TPU_HEALTH_TIMEOUT_S"] = "4.0"  # kill_node is noticed in seconds
+        try:
+            with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_head_") as d:
+                c = _cluster("cuda", persist_path=os.path.join(d, "head_state.pkl"))
+                try:
+                    c.add_node({"CPU": 16.0}, num_workers=4)
+                    c.add_node({"CPU": 16.0}, num_workers=4)
+                    client = c.client()
+                    set_runtime(client)
+                    try:
+                        cluster_functional(c, client, rtt)
+                        print(f"cluster functional workload with the head on the card: every "
+                              f"value right; head sched_rounds (since the restart) "
+                              f"{c.head.metrics['sched_rounds']}")
+                    finally:
+                        set_runtime(None)
+                        client.shutdown()
+                finally:
+                    c.shutdown()
+        finally:
+            os.environ.pop("RAY_TPU_HEALTH_TIMEOUT_S", None)
+            while restores:
+                restores.pop()()
+        errors.check("cluster functional workload")
+        check(len(records) > 0, "cluster: no head round was recorded")
+        for i, (args, kw, node, avail_out) in enumerate(records):
+            res = impl(*args, **kw)
+            check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
+                  f"cluster: head round {i} of {len(records)} replays differently on the CPU")
+        for i, (args, kw, outs) in enumerate(ring_records):
+            res = ring_impl(*args, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(res, outs)),
+                  f"cluster: ring round {i} of {len(ring_records)} replays differently on the CPU")
+        print(f"cluster replay: {len(records)} card head rounds and {len(ring_records)} ring "
+              f"rounds replayed on the CPU, every node row, count and avail_out equal")
+        os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
+        try:
+            cpu, cpu_rounds = cluster_burst("CPU path", "cpu")
+        finally:
+            os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
+        errors.check("cluster burst on the CPU path")
+    finally:
+        while restores:
+            restores.pop()()
+        errors.close()
+    print(f"cluster tasks/s card {', '.join(f'{r:.1f}' for r in card)} "
+          f"(head rounds {', '.join(map(str, card_rounds))}); CPU path "
+          f"{', '.join(f'{r:.1f}' for r in cpu)} (head rounds {', '.join(map(str, cpu_rounds))})")
+    print(f"cluster phase: {time.perf_counter() - t0:.1f} s")
+
 def main() -> None:
     phase_card_and_build()
     flash_row = phase_flash()
@@ -1637,6 +2014,7 @@ def main() -> None:
     phase_train_f32()
     phase_scheduler()
     phase_runtime()
+    phase_cluster()
     kernels = [
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",

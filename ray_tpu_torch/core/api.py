@@ -1,10 +1,10 @@
 """Public API: init/remote/get/put/wait — parity with the reference's
 
-Port of ``ray_tpu/core/api.py``, with its imports rewritten. ``init`` starts
-the local runtime only: an ``address`` (or ``cfg.head_address``) raises
-``NotImplementedError`` until the cluster runtime is ported (ROADMAP Queue A
-item 4). ``init`` brings the scheduler device up at once and raises without
-it: ``cuda`` unless ``RAY_TPU_SCHED_PLATFORM=cpu``.
+Port of ``ray_tpu/core/api.py``, with its imports rewritten. ``init()``
+starts the local runtime and brings its scheduler device up at once, or
+raises: ``cuda`` unless ``RAY_TPU_SCHED_PLATFORM=cpu``. ``init(address=...)``
+(or ``cfg.head_address``) connects a ``RemoteRuntime`` to a cluster head,
+whose rounds run on the head's device.
 
 python surface (/root/reference/python/ray/_private/worker.py:1406,
 remote_function.py:314, actor.py:1024)."""
@@ -29,7 +29,6 @@ from .runtime import (
     TaskSpec,
     get_context,
     get_runtime,
-    CLUSTER_NOT_PORTED,
     runtime_initialized,
     set_runtime,
 )
@@ -56,7 +55,7 @@ def init(
     With ``address="host:port"``: connect this driver to a running
     multi-process cluster's head (the distributed runtime in
     ``cluster/``; the reference's ray.init(address=...) +
-    Ray-Client mode; not ported yet: it raises). The scheduler runs the
+    Ray-Client mode). The scheduler runs the
     batched programs on the device selected by ``RAY_TPU_SCHED_PLATFORM``
     (default ``cuda``; ``cpu`` runs them on the host), brought up here: a
     missing or failing device raises — ``use_device_scheduler=False`` or
@@ -71,7 +70,11 @@ def init(
 
         address = cfg.head_address or None
     if address is not None:
-        raise NotImplementedError(CLUSTER_NOT_PORTED)
+        from ..cluster.client import RemoteRuntime
+
+        remote_rt = RemoteRuntime(address, runtime_env=runtime_env)
+        set_runtime(remote_rt)
+        return remote_rt
     if resources_per_node is None:
         resources_per_node = {}
         if num_cpus is not None:
@@ -115,6 +118,10 @@ def get(
     rt = get_runtime()
     if isinstance(refs, ObjectRef):
         return rt.get_object(refs, timeout)
+    refs = list(refs)
+    batched = getattr(rt, "get_objects", None)
+    if batched is not None and len(refs) > 1:
+        return batched(refs, timeout)
     return [rt.get_object(r, timeout) for r in refs]
 
 
@@ -138,6 +145,9 @@ def wait(
 
 def kill(actor_handle, *, no_restart: bool = True) -> None:
     rt = get_runtime()
+    if getattr(rt, "is_remote", False):
+        rt.kill_actor(actor_handle, no_restart=no_restart)
+        return
     state = actor_handle._actor_state
     state.mark_died(restart=not no_restart)
     if state._held_req is not None:
@@ -158,6 +168,9 @@ def cancel(ref: ObjectRef, *, force: bool = False, recursive: bool = True) -> No
     the thread-pool model cannot be preempted, like non-force cancel in the
     reference)."""
     rt = get_runtime()
+    if getattr(rt, "is_remote", False):
+        rt.cancel_object(ref, force=force)
+        return
     with rt._cond:
         for q in (rt._pending, rt._infeasible, rt._dep_waiting):
             for spec in list(q):
@@ -215,6 +228,8 @@ def timeline(filename: Optional[str] = None) -> List[dict]:
     """Chrome-trace dump of task lifecycle events (ray.timeline parity,
     reference _private/state.py:1010)."""
     rt = get_runtime()
+    if getattr(rt, "is_remote", False):
+        return rt.timeline(filename)
     return rt.events.dump_timeline(filename)
 
 
@@ -228,6 +243,8 @@ def available_resources() -> Dict[str, float]:
 
 def get_actor(name: str):
     rt = get_runtime()
+    if getattr(rt, "is_remote", False):
+        return rt.get_actor(name)
     actor_id = rt._named_actors.get(name)
     if actor_id is None:
         raise ValueError(f"no actor named {name!r}")
@@ -353,13 +370,37 @@ class ActorClass:
                 "lifetime must be 'detached' or 'non_detached', "
                 f"got {opts.get('lifetime')!r}"
             )
+        if getattr(rt, "is_remote", False):
+            v = opts.get("max_task_retries")
+            if v not in (None, 0):
+                import warnings
+
+                warnings.warn(
+                    f"max_task_retries={v} is not yet supported by the "
+                    "distributed cluster backend; actor methods are not "
+                    "automatically retried",
+                    stacklevel=2,
+                )
+            return rt.create_actor(
+                self._cls,
+                args,
+                kwargs,
+                resources=_resource_map(opts, is_actor=True),
+                name=opts.get("name"),
+                lifetime=opts.get("lifetime"),
+                max_restarts=opts.get("max_restarts", 0),
+                max_concurrency=opts.get("max_concurrency"),
+                concurrency_groups=opts.get("concurrency_groups"),
+                scheduling_strategy=opts.get("scheduling_strategy"),
+                runtime_env=opts.get("runtime_env"),
+            )
         from ..cluster.pip_env import has_env
 
         if has_env(opts.get("runtime_env")):
             raise NotImplementedError(
                 "pip/uv/conda runtime environments need per-env worker processes — "
-                "need the cluster runtime, which is not ported yet; the "
-                "in-process runtime shares one interpreter"
+                "run against a cluster (ray_tpu_torch.init(address=...) or "
+                "Cluster()); the in-process runtime shares one interpreter"
             )
         return actor_mod.create_actor(
             rt,

@@ -4,7 +4,7 @@ Port of ``ray_tpu/core/placement_group.py``, with its imports rewritten.
 The bundle programs get the runtime's scheduler device
 (``Runtime.sched_device``, from ``cfg.sched_platform``): they are given host
 arrays, so without it they would pick ``cuda`` even on the CPU path. Remote
-placement groups (``init(address=...)``) wait for the cluster runtime.
+placement groups (``init(address=...)``) are placed by the cluster head.
 
 
 Analog of the reference PG stack (GcsPlacementGroupManager/Scheduler +
@@ -208,6 +208,13 @@ def placement_group(
     from .runtime import get_runtime
 
     rt = get_runtime()
+    if getattr(rt, "is_remote", False):
+        from ..cluster.client import RemotePlacementGroup
+
+        pg_id = rt.create_placement_group(
+            list(bundles), strategy, avoid_nodes=avoid_nodes
+        )
+        return RemotePlacementGroup(pg_id, list(bundles), strategy)
     state = PlacementGroupState(
         rt, bundles, strategy, name=name, avoid_nodes=avoid_nodes
     )
@@ -219,6 +226,9 @@ def remove_placement_group(pg) -> None:
     from .runtime import get_runtime
 
     rt = get_runtime()
+    if getattr(rt, "is_remote", False):
+        rt.remove_placement_group(pg.id)
+        return
     pg._state.remove()
     rt._pgs.pop(pg.id, None)
     rt.notify_resources_changed()

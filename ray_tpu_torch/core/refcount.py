@@ -1,8 +1,6 @@
 """Distributed reference counting — the ownership layer of the object plane.
 
 Port of ``ray_tpu/core/refcount.py``, copied with its imports rewritten.
-``loads_tracking`` (the remote path's borrow-registering deserializer) is
-left out until ``cluster/serialization.py`` is ported.
 
 
 Analog of the reference's ReferenceCounter
@@ -394,3 +392,18 @@ class FreedLRU:
     def discard(self, hex_id: str) -> None:
         with self._lock:
             self._set.discard(hex_id)
+
+
+def loads_tracking(flusher: "RefFlusher", data):
+    """Deserialize a fetched value, registering any ObjectRefs inside it as
+    borrows with the head *before* user code sees them (while the containing
+    object's pin still protects them). ``data`` may be bytes or a zero-copy
+    memoryview (shm arena page); the out-of-band wire format deserializes
+    numpy payloads as views over it."""
+    from ..cluster import serialization as wire
+
+    with collect_deserialized() as borrowed:
+        value = wire.loads(data)
+    if borrowed:
+        flusher.sync_incref(sorted(borrowed))
+    return value

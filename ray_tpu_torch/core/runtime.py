@@ -8,7 +8,8 @@ and degrades to the golden model). ``hybrid_schedule_reference`` runs only
 when the caller asks for it (``use_device_scheduler=False`` or
 ``RAY_TPU_DEVICE_SCHEDULER=0``). Rounds that fail are logged on the
 ``ray_tpu_torch`` logger as "scheduler round failed" and requeued, as in the
-reference. A cluster head address raises: the cluster runtime is not ported.
+reference. Inside a cluster worker (``cfg.head_address`` set) ``get_runtime``
+connects a ``RemoteRuntime``, as the reference does.
 
 
 Single-process, multi-node-simulated runtime — the analog of the reference's
@@ -424,8 +425,8 @@ class Runtime:
         if has_env(spec.runtime_env):
             raise NotImplementedError(
                 "pip/uv/conda runtime environments need per-env worker processes — "
-                "need the cluster runtime, which is not ported yet; the "
-                "in-process runtime shares one interpreter"
+                "run against a cluster (ray_tpu_torch.init(address=...) or "
+                "Cluster()); the in-process runtime shares one interpreter"
             )
         refs = spec.returns
         spec.return_ids = [r.hex for r in refs]
@@ -1244,14 +1245,6 @@ class Runtime:
 _HYBRID = object()
 _FAIL = object()
 
-CLUSTER_NOT_PORTED = (
-    "connecting to a cluster head (init(address=...), RAY_TPU_HEAD_ADDRESS) "
-    "needs the cluster runtime, which ray_tpu_torch has not ported yet "
-    "(ROADMAP Queue A item 4); call init() without an address for the "
-    "local runtime"
-)
-
-
 def _scheduler_device(platform: str):
     """The scheduler's torch device for ``platform``; ``cuda`` without
     CUDA raises (the port does not move to the CPU on its own)."""
@@ -1264,16 +1257,27 @@ def _scheduler_device(platform: str):
         )
     return torch.device(platform)
 
+
 _runtime: Optional[Runtime] = None
 _runtime_lock = threading.Lock()
 
 
 def get_runtime() -> Runtime:
+    global _runtime
     if _runtime is None:
+        # Inside a cluster worker process the head address is in the env —
+        # nested ray_tpu_torch API calls connect as a client automatically
+        # (the reference's workers similarly auto-connect to their cluster).
         from ..config import cfg
 
-        if cfg.head_address:
-            raise NotImplementedError(CLUSTER_NOT_PORTED)
+        addr = cfg.head_address or None
+        if addr:
+            from ..cluster.client import RemoteRuntime
+
+            with _runtime_lock:
+                if _runtime is None:
+                    _runtime = RemoteRuntime(addr)
+            return _runtime
         raise RuntimeError("ray_tpu_torch.init() has not been called")
     return _runtime
 

@@ -3,9 +3,10 @@ consumed via ctypes).
 
 Port of ``ray_tpu/native/build.py``. The port compiles its own copy of the
 C++ sources (``native/*.cc`` here) with the system ``g++`` at first use,
-into the git-ignored ``native/_build/``. Only the shared-memory object store
-is ported so far; the ledger, ring, wire and net sources wait for the
-cluster runtime.
+into the git-ignored ``native/_build/``: the shared-memory object store,
+the node resource ledger, the wire framing and the socket data plane. The
+reference's ``ring.cc`` serves only ``dag/`` and waits for it (ROADMAP
+Queue A item 5).
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ _BUILD_DIR = os.path.join(_HERE, "_build")
 
 SOURCES = {
     "objstore": "object_store.cc",
+    "ledger": "ledger.cc",
+    "wire": "wire.cc",
+    "net": "net.cc",
 }
 
 

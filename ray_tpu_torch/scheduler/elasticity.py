@@ -592,17 +592,6 @@ def build_plan(
 # ---------------------------------------------------------------------------
 # controller
 # ---------------------------------------------------------------------------
-def _shape_key_of(spec) -> tuple:
-    """Memoized resource-shape identity of a spec: the key the head's
-    dense-row cache, fair-batch classes and device ring index by (a copy of
-    ``ray_tpu/cluster/head.py::_shape_key_of``; the head is not ported)."""
-    key = getattr(spec, "_shape_key", None)
-    if key is None:
-        key = tuple(sorted(spec.resources.items()))
-        spec._shape_key = key
-    return key
-
-
 class ElasticityController:
     """Head-resident tick loop: snapshot → one device solve → actuate.
 
@@ -697,6 +686,7 @@ class ElasticityController:
                     )
                 )
             parked: Dict[tuple, int] = {}
+            from ..cluster.head import _shape_key_of
 
             seen: set = set()
             for q in (

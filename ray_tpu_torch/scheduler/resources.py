@@ -1,8 +1,7 @@
 """Resource model: string-interned vocabulary + dense tensor packing.
 
 Port of ``ray_tpu/scheduler/resources.py``, copied with its imports
-rewritten; ``make_ledger`` returns the Python ledger (the native ledger
-waits for the port of ``ray_tpu/native``).
+rewritten.
 
 TPU-first redesign of the reference's resource model
 (Ray's src/ray/common/scheduling/cluster_resource_data.h:39,308 and
@@ -264,10 +263,19 @@ class NodeResourceLedger:
 
 
 def make_ledger(vocab: ResourceVocab, total: Mapping[str, float]):
-    """The admission ledger for one node. The reference prefers its native
-    C++ ledger (``ray_tpu/native/ledger.cc``); the port has not built
-    ``native/`` yet, so this is the Python ledger, which keeps the same
-    exact fixed-point arithmetic."""
+    """Prefer the native C++ ledger (``native/ledger.cc`` — the
+    LocalResourceManager-analog admission hot path); fall back to the pure
+    Python implementation when the toolchain is unavailable. Both keep the
+    same exact fixed-point arithmetic. Disable with RAY_TPU_NATIVE_LEDGER=0."""
+    from ..config import cfg
+
+    if cfg.native_ledger:
+        try:
+            from ..native.native_ledger import NativeNodeResourceLedger
+
+            return NativeNodeResourceLedger(vocab, total)
+        except Exception:  # noqa: BLE001 - no compiler / build failure
+            pass
     return NodeResourceLedger(vocab, total)
 
 

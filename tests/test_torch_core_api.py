@@ -1169,6 +1169,19 @@ def test_unpark_device_failure_surfaces(rt, monkeypatch, caplog):
     assert failed and "estimator died" in str(failed[0].exc_info[1])
 
 
-def test_cluster_address_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        rtt.init(address="localhost:1")
+def test_cluster_address_is_not_ported(monkeypatch):
+    """The cluster runtime is ported now: ``init(address=...)`` connects a
+    ``RemoteRuntime`` to a live head instead of raising."""
+    from ray_tpu_torch.cluster import HeadServer, RemoteRuntime
+
+    monkeypatch.setenv("RAY_TPU_SCHED_PLATFORM", "cpu")
+    head = HeadServer()
+    try:
+        rt = rtt.init(address=head.address)
+        try:
+            assert isinstance(rt, RemoteRuntime)
+            assert rt.query_state()["num_nodes"] == 0
+        finally:
+            rtt.shutdown()
+    finally:
+        head.shutdown(stop_agents=False)
