@@ -77,14 +77,46 @@ passes or exits non-zero:
    with the new head's state on the card, leased tasks then ``kill_node``
    and a lineage rebuild); each recorded round (the parked-demand ring's
    from the card burst on) is replayed on the CPU; the burst runs again
-   with the head on the port's CPU path. Any ERROR record fails the phase;
-9. prints the kernel table as one JSON line, then the result line.
+   with the head on the port's CPU path. Each burst prints its ring
+   rounds' program ms and slots walked, and the client's lease grants,
+   grant RPC ms, misses by the state of their shape's leases and lease
+   ages. Any ERROR record fails the phase;
+9. drives bench.py's ``sim_sched`` through the port's real ``HeadServer``
+   (``scheduler/sim.py``: 10,000 nodes of NODE_MIX, 200,000 demands,
+   grants to a sink), synchronous then pipelined after a warm-up run:
+   placements/s, round p50/p99, divergence 0; every head and ring round of
+   the runs, recorded on the card, replays equal on the CPU;
+10. runs ``run_elasticity_sim`` at bench.py's part (b) defaults (10,000
+   nodes, 8 ticks, 200 parked shapes): tick p50/p99, ``solve_path``,
+   every tick's ``solve_pack_counts`` on the card, each replayed on the
+   CPU (per_node and placed equal, the residual within 1e-5);
+11. drives the autoscaler: in the local runtime on the card (256 nodes, a
+   2,000-task backlog in 20 shapes no node holds), ``Autoscaler.tick()``
+   packs the demand on the card and launches nodes until every task has
+   returned its value, ``SOLVER_RUNS`` rising and ``SOLVER_FALLBACKS``
+   not, each ``pack_or_solve`` replayed on the CPU; then a two-agent
+   ``Cluster`` whose head's elasticity controller, given
+   ``attach_elasticity_provider``, provisions agents under a parked burst
+   and retires them when idle, ms per tick printed;
+12. starts a ``Cluster`` with a warm standby (``start_standby``), runs 300
+   tasks, kills the leader: the standby promotes onto the leader's port
+   with its scheduler state on the card, a task and an actor created after
+   the promotion return, and ``FAILOVER_MS`` is printed;
+13. checks that every process the phases started (agents, zygotes,
+   workers) has ended: the script is its descendants' subreaper, so a
+   worker orphaned by its agent's death is found too; what is left after
+   20 s is killed and the run fails naming it. On any exit, whatever is
+   left below the script is killed;
+14. prints the kernel table as one JSON line, then the result line.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1267,7 +1299,6 @@ def sched_other_programs(st, view):
 
 def phase_scheduler():
     """The scheduler slice: kernel tier, head round, other programs."""
-    import os
 
     os.environ["RAY_TPU_SCHED_PREWARM"] = "0"  # no background warm-up in the timings
     t0 = time.perf_counter()
@@ -1595,7 +1626,6 @@ def phase_runtime():
     """The local runtime on the card: the many-tasks burst (card, then the
     port's CPU path in a fresh runtime), the functional workload with every
     round recorded, and each recorded round replayed on the CPU."""
-    import os
 
     import ray_tpu_torch as rtt
 
@@ -1679,6 +1709,79 @@ def _cluster(device: str, **kwargs):
     return c
 
 
+def _trace_leases():
+    """Traces the client's lease cache by wrapping ``_TaskLeaseManager``'s
+    and ``_TaskLeaseChannel``'s methods (nothing changes in the package):
+    each grant request's RPC time and answer, each miss by the state of
+    its shape's leases at that moment, and each lease's age when it is
+    dropped (idle TTL, stall or failure). Returns (stats, restore)."""
+    from ray_tpu_torch.cluster import client as C
+
+    mgr, chan = C._TaskLeaseManager, C._TaskLeaseChannel
+    saved = (mgr.submit, mgr._grant, mgr._drop_channel, chan.__init__)
+    stats = {"grant_ms": [], "requests": 0, "granted": 0, "misses": {}, "ages": [],
+             "drops": {}, "born": {}, "ttl": set()}
+
+    def submit(self, item, shape_key):
+        ok = saved[0](self, item, shape_key)
+        if not ok:
+            ent = self._shapes.get(shape_key)
+            live = [c for c in (ent or {}).get("channels", []) if not c.dead]
+            if ent is None:
+                why = "stopped"
+            elif not live:
+                why = ("grant in flight" if ent["granting"] else
+                       "cooldown" if time.monotonic() < ent["cooldown_until"] else "warm-up")
+            elif not any(c.accepting() for c in live):
+                why = "leases stalled"
+            else:
+                why = "leases full"
+            stats["misses"][why] = stats["misses"].get(why, 0) + 1
+        return ok
+
+    def grant(self, shape_key, resources, fn_id):
+        t0 = time.perf_counter()
+        try:
+            return saved[1](self, shape_key, resources, fn_id)
+        finally:
+            stats["requests"] += 1
+            stats["grant_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def drop(self, shape_key, ch):
+        born = stats["born"].pop(id(ch), None)
+        if born is not None:
+            stats["ages"].append(time.monotonic() - born)
+            callers, f = set(), sys._getframe(1)
+            while f is not None:
+                callers.add(f.f_code.co_name)
+                f = f.f_back
+            why = ("failed over" if "_fail_over" in callers else
+                   "stopped" if "stop" in callers else "idle for its TTL")
+            stats["drops"][why] = stats["drops"].get(why, 0) + 1
+        return saved[2](self, shape_key, ch)
+
+    def init(self, *a, **k):
+        saved[3](self, *a, **k)
+        stats["granted"] += 1
+        stats["born"][id(self)] = time.monotonic()
+        stats["ttl"].add(self.ttl)
+
+    mgr.submit, mgr._grant, mgr._drop_channel, chan.__init__ = submit, grant, drop, init
+
+    def restore():
+        mgr.submit, mgr._grant, mgr._drop_channel, chan.__init__ = saved
+
+    return stats, restore
+
+
+def _pcts(xs, scale=1.0):
+    """'p50/p99' of ``xs`` (or 'none')."""
+    if not len(xs):
+        return "none"
+    a = np.asarray(xs, dtype=np.float64) * scale
+    return f"{np.percentile(a, 50):.3f}/{np.percentile(a, 99):.3f}"
+
+
 def cluster_burst(label: str, device: str, num_tasks: int = 10_000, passes: int = 2):
     """bench.py's ``cluster_bench``, unchanged in shape: a head, two agents
     of 16 CPUs with 4 workers each, 50 warm-up tasks, then ``passes`` passes
@@ -1691,6 +1794,7 @@ def cluster_burst(label: str, device: str, num_tasks: int = 10_000, passes: int 
 
     c = _cluster(device)
     marks = _hist_marks()  # the head's rounds of this cluster, warm-up included
+    leases, untrace = _trace_leases()
     try:
         c.add_node({"CPU": 16.0}, num_workers=4)
         c.add_node({"CPU": 16.0}, num_workers=4)
@@ -1728,18 +1832,27 @@ def cluster_burst(label: str, device: str, num_tasks: int = 10_000, passes: int 
             print(f"cluster {label} head rounds' latency, warm-up and passes (ms, p50/p99 over "
                   f"n): " + "; ".join(f"{k} {p50:.3f}/{p99:.3f} over {n_obs[k]}"
                                       for k, (_, p50, p99) in lat.items()))
-            return rates, rounds
+            print(f"cluster {label} leases, warm-up and passes: {leases['requests']} grant "
+                  f"requests, {leases['granted']} granted, grant RPC ms p50/p99 "
+                  f"{_pcts(leases['grant_ms'])}; misses by the state of their shape's leases "
+                  f"{dict(sorted(leases['misses'].items()))}; {len(leases['ages'])} leases "
+                  f"dropped at age s p50/p99 {_pcts(leases['ages'])} "
+                  f"{dict(sorted(leases['drops'].items()))}, "
+                  f"{len(leases['born'])} live at the end; lease TTL s {sorted(leases['ttl'])}")
+            return rates, rounds, hits, misses
         finally:
             set_runtime(None)
             client.shutdown()
     finally:
+        untrace()
         c.shutdown()
 
 
 def _record_ring_rounds():
     """As ``_record_rounds``, for the parked-demand ring's program (the
     head's unpark rounds): each call's inputs and all four outputs kept on
-    the host; returns (records, impl, restore)."""
+    the host, with the program's time (dispatch to its outputs on the host)
+    and the number of slots it walked; returns (records, impl, restore)."""
     from ray_tpu_torch.scheduler import hybrid as H
 
     impl = H.ring_schedule_impl
@@ -1749,9 +1862,13 @@ def _record_ring_rounds():
         return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
 
     def _recorded(*args, **kwargs):
+        t0 = time.perf_counter()
         res = impl(*args, **kwargs)
+        outs = [host(t) for t in res]  # the caller reads them back next anyway
+        ms = (time.perf_counter() - t0) * 1e3
+        walked = kwargs.get("slots")
         records.append(([host(a) for a in args], {k: host(v) for k, v in kwargs.items()},
-                        [host(t) for t in res]))
+                        outs, ms, len(walked) if walked is not None else int(res[0].shape[0])))
         return res
 
     H.ring_schedule_impl = _recorded
@@ -1775,7 +1892,6 @@ def _sum64(a):
 
 
 def _node_of():
-    import os
 
     return os.environ.get("RAY_TPU_NODE_ID")
 
@@ -1788,7 +1904,6 @@ def _gpu_product(seed, n):
     """In a worker: the lease's CUDA_VISIBLE_DEVICES, whether CUDA was
     initialised before this task (the zygote and the worker must not touch
     it), and a seeded f32 product computed on the card."""
-    import os
 
     import torch as th
 
@@ -1936,7 +2051,6 @@ def phase_cluster():
     ring's from the card burst on, the pipelined ones in the functional
     workload: recording reads each back, which the ring does anyway)
     replayed on the CPU."""
-    import os
     import tempfile
 
     import ray_tpu_torch as rtt
@@ -1949,7 +2063,8 @@ def phase_cluster():
     ring_records, ring_impl, ring_restore = _record_ring_rounds()
     restores = [ring_restore]
     try:
-        card, card_rounds = cluster_burst("card", "cuda")
+        card, card_rounds, card_hits, card_misses = cluster_burst("card", "cuda")
+        card_ring = list(ring_records)
         errors.check("cluster burst on the card")
         records, impl, restore = _record_rounds()
         restores.append(restore)
@@ -1982,18 +2097,25 @@ def phase_cluster():
             res = impl(*args, **kw)
             check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
                   f"cluster: head round {i} of {len(records)} replays differently on the CPU")
-        for i, (args, kw, outs) in enumerate(ring_records):
+        for i, (args, kw, outs, _, _) in enumerate(ring_records):
             res = ring_impl(*args, **kw)
             check(all(torch.equal(a, b) for a, b in zip(res, outs)),
                   f"cluster: ring round {i} of {len(ring_records)} replays differently on the CPU")
         print(f"cluster replay: {len(records)} card head rounds and {len(ring_records)} ring "
               f"rounds replayed on the CPU, every node row, count and avail_out equal")
         os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
+        cpu_ring, _, cpu_ring_restore = _record_ring_rounds()
         try:
-            cpu, cpu_rounds = cluster_burst("CPU path", "cpu")
+            cpu, cpu_rounds, cpu_hits, cpu_misses = cluster_burst("CPU path", "cpu")
         finally:
+            cpu_ring_restore()
             os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
         errors.check("cluster burst on the CPU path")
+        for label, recs, hits, misses in (("card", card_ring, card_hits, card_misses),
+                                          ("CPU path", cpu_ring, cpu_hits, cpu_misses)):
+            print(f"cluster ring rounds, burst {label}: {len(recs)} rounds, program ms (dispatch "
+                  f"to outputs on the host) p50/p99 {_pcts([r[3] for r in recs])}, slots walked "
+                  f"p50/p99 {_pcts([r[4] for r in recs])}; lease hits {hits}, misses {misses}")
     finally:
         while restores:
             restores.pop()()
@@ -2003,7 +2125,512 @@ def phase_cluster():
           f"{', '.join(f'{r:.1f}' for r in cpu)} (head rounds {', '.join(map(str, cpu_rounds))})")
     print(f"cluster phase: {time.perf_counter() - t0:.1f} s")
 
+
+# --- the simulated-scale head, the elasticity controller, the autoscaler ---
+# --- and the warm standby, each on the card                              ---
+
+
+def _platform_env(device: str) -> None:
+    """Point the port's scheduler at ``device`` (``cuda``, the default, or
+    ``cpu``, which only a rehearsal on a host without a card asks for)."""
+
+    os.environ["RAY_TPU_SCHED_PREWARM"] = "0"  # no background warm-up in the timings
+    if device == "cuda":
+        os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
+    else:
+        os.environ["RAY_TPU_SCHED_PLATFORM"] = device
+
+
+def _record_on_device(module, name):
+    """Wraps ``module.<name>`` so each call's tensor arguments and outputs
+    are cloned where they lie, with no read to the host (pipelined rounds
+    stay pipelined); returns (records, impl, restore)."""
+    impl = getattr(module, name)
+    records = []
+
+    def keep(x):
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    def _recorded(*args, **kwargs):
+        kept = ([keep(a) for a in args], {k: keep(v) for k, v in kwargs.items()})
+        res = impl(*args, **kwargs)
+        records.append((*kept, [keep(t) for t in res]))
+        return res
+
+    setattr(module, name, _recorded)
+    return records, impl, lambda: setattr(module, name, impl)
+
+
+def _replay_on_cpu(label: str, records, impl, fields) -> int:
+    """Runs every recorded call again on the CPU; the outputs named by
+    ``fields`` (indices into the result) must be equal bit for bit."""
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    for i, (args, kw, outs) in enumerate(records):
+        res = impl(*(host(a) for a in args), **{**{k: host(v) for k, v in kw.items()},
+                                                "device": "cpu"})
+        for f in fields:
+            check(torch.equal(res[f], host(outs[f])),
+                  f"{label}: call {i} of {len(records)} replays differently on the CPU "
+                  f"(output {f})")
+    return len(records)
+
+
+SIM_DEMANDS = 200_000  # bench.py sim_sched's default backlog
+
+
+def phase_sim(device: str = "cuda", num_nodes: int = 10_000, num_demands: int = SIM_DEMANDS):
+    """bench.py's ``sim_sched`` through the port's real ``HeadServer``
+    (scheduler thread, batch popping, rounds, ring unparks; grants go to a
+    sink): ``num_nodes`` nodes of sim.py's NODE_MIX, the same backlog
+    synchronous then pipelined after a warm-up run, every round on the
+    card. Divergence must be 0, and every head round and ring round of the
+    three runs, recorded on the card, replays equal on the CPU."""
+    from ray_tpu_torch.scheduler import hybrid as H
+    from ray_tpu_torch.scheduler import sim
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    rounds, round_impl, round_restore = _record_on_device(H, "hybrid_schedule_shapes_multi_impl")
+    rings, ring_impl, ring_restore = _record_on_device(H, "ring_schedule_impl")
+    try:
+        pair = sim.run_sim_pair(num_nodes, num_demands, heterogeneous=True,
+                                timeout_s=max(300.0, num_demands / 1000.0))
+    finally:
+        ring_restore()
+        round_restore()
+        errors.close()
+    run_s = time.perf_counter() - t0
+    errors.check("sim")
+    for mode in ("sync", "pipelined"):
+        r = pair[mode]
+        check(r["completed"] and r["delivered"] == num_demands,
+              f"sim {mode}: delivered {r['delivered']} of {num_demands}")
+        print(f"sim {mode} [{device}] {num_nodes} nodes, {num_demands} demands through the head: "
+              f"{r['placements_per_s']:.1f} placements/s in {r['elapsed_s']:.3f} s; "
+              f"{r['sched_rounds']} rounds, round p50 {r['sched_round_p50_ms']:.3f} ms p99 "
+              f"{r['sched_round_p99_ms']:.3f} ms; device {r['device_stats']}")
+    check(pair["placement_divergence"] == 0,
+          f"sim: placement divergence {pair['placement_divergence']}")
+    check(len(rounds) > 0 and rounds[0][2][0].device.type == device,
+          f"sim: no head round ran on {device}")
+    t1 = time.perf_counter()
+    n_rounds = _replay_on_cpu("sim head round", rounds, round_impl, (0, 1))
+    n_ring = _replay_on_cpu("sim ring round", rings, ring_impl, (0, 1, 2, 3))
+    print(f"sim: placement divergence {pair['placement_divergence']}, pipeline speedup "
+          f"{pair['pipeline_speedup']}; {n_rounds} head rounds and {n_ring} ring rounds of the "
+          f"three runs replayed on the CPU, every node row, count and avail_out equal "
+          f"({time.perf_counter() - t1:.1f} s); the runs took {run_s:.1f} s")
+    print(f"sim phase: {time.perf_counter() - t0:.1f} s")
+    return pair
+
+
+def phase_elasticity(device: str = "cuda", num_nodes: int = 10_000, ticks: int = 8,
+                     task_shapes: int = 200):
+    """bench.py's elasticity part (b): ``run_elasticity_sim`` at its
+    defaults, a real head with ``num_nodes`` nodes, serve pressure,
+    under-world gangs and ``task_shapes`` parked shapes; every tick is one
+    ``solve_pack_counts`` on the card. Each recorded solve is replayed on
+    the CPU: per_node and placed equal, the residual within 1e-5."""
+    from ray_tpu_torch.scheduler import binpack as B
+    from ray_tpu_torch.scheduler import elasticity as E
+    from ray_tpu_torch.scheduler.sim import run_elasticity_sim
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    impl = B.solve_pack_counts
+    solves = []
+
+    def _recorded(nodes_avail, shapes, counts, **kw):
+        t = time.perf_counter()
+        res = impl(nodes_avail, shapes, counts, **kw)
+        outs = [x.cpu() for x in res]  # the caller reads them back next anyway
+        ms = (time.perf_counter() - t) * 1e3
+        solves.append(((np.array(nodes_avail), np.array(shapes), np.array(counts)), dict(kw),
+                       res.per_node.device.type, outs, ms))
+        return res
+
+    fallback0 = E.ELASTIC_TICKS.value({"path": "first_fit"})
+    errors = _RuntimeErrors()
+    B.solve_pack_counts = _recorded
+    try:
+        out = run_elasticity_sim(num_nodes=num_nodes, ticks=ticks, task_shapes=task_shapes)
+    finally:
+        B.solve_pack_counts = impl
+        errors.close()
+    errors.check("elasticity")
+    check(out["solve_path"] == "solve", f"elasticity: the last tick took {out['solve_path']}")
+    check(E.ELASTIC_TICKS.value({"path": "first_fit"}) == fallback0,
+          "elasticity: a tick's solve failed over to first-fit")
+    check(len(solves) >= ticks and all(s[2] == device for s in solves),
+          f"elasticity: {len(solves)} solves, on {sorted({s[2] for s in solves})}")
+    print(f"elasticity [{device}] {num_nodes} nodes, {task_shapes} parked shapes: {ticks} ticks, "
+          f"tick p50 {out['tick_p50_ms']:.3f} ms p99 {out['tick_p99_ms']:.3f} ms, "
+          f"{out['ticks_per_s']} ticks/s, solve_path {out['solve_path']}, demand rows "
+          f"{out['demand_rows']}, serve hints {out['serve_hints']}, world hints "
+          f"{out['world_hints']}; solve shape {solves[-1][0][1].shape[0]} x "
+          f"{solves[-1][0][0].shape[0]}, solve ms (upload to outputs on the host) p50/p99 "
+          f"{_pcts([x[4] for x in solves])}")
+    t1 = time.perf_counter()
+    worst = 0.0
+    for i, ((avail, shapes, counts), kw, _, outs, _) in enumerate(solves):
+        res = impl(avail, shapes, counts, **{**kw, "device": "cpu"})
+        check(torch.equal(res.per_node, outs[1]) and torch.equal(res.placed, outs[0]),
+              f"elasticity: solve {i} of {len(solves)} places differently on the CPU")
+        err = float((res.avail_out - outs[2]).abs().max())
+        worst = max(worst, err)
+        check(err <= SCHED_EPS, f"elasticity: solve {i} residual off the CPU's by {err:.3g}")
+    print(f"elasticity replay: {len(solves)} solves on the CPU, per_node and placed equal, "
+          f"residual max abs err {worst:.3g} (tolerance {SCHED_EPS}) "
+          f"({time.perf_counter() - t1:.1f} s)")
+    print(f"elasticity phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _ret(i):
+    return i
+
+
+# 20 shapes no node of the 4-CPU, 4 GiB fleet holds
+AUTOSCALE_SHAPES = [{"CPU": float(c), "memory": float(m << 30)}
+                    for c in (5, 6, 7, 8) for m in (1, 2, 3, 4, 5)]
+
+
+def autoscaler_runtime(device: str, backlog: int = 2000):
+    """The in-process runtime at runtime_burst's 256 nodes of 4 CPUs and
+    4 GiB; ``backlog`` tasks in AUTOSCALE_SHAPES park; ``Autoscaler.tick()``
+    (called directly, never its loop) packs the demand on the runtime's
+    scheduler device and launches nodes through ``SimNodeProvider``; every
+    task returns its value. Each ``pack_or_solve`` call is replayed on the
+    CPU and must give the same row per demand."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.autoscaler import Autoscaler, NodeTypeConfig
+    from ray_tpu_torch.scheduler import binpack as B
+
+    gib = float(1 << 30)
+    rt = rtt.init(num_nodes=256, resources_per_node={"CPU": 4, "memory": 4 * gib})
+    try:
+        check(rt.device_state is not None and rt.device_state.device.type == device,
+              f"autoscaler: the runtime's scheduler state is not on {device}")
+        refs = []
+        for i in range(backlog):
+            shape = AUTOSCALE_SHAPES[i % len(AUTOSCALE_SHAPES)]
+            refs.append(rtt.remote(_ret).options(
+                num_cpus=shape["CPU"], memory=shape["memory"], max_retries=0).remote(i))
+        deadline = time.monotonic() + 60
+        while len(rt.pending_resource_demands()) < backlog:
+            check(time.monotonic() < deadline, "autoscaler: the backlog never parked")
+            time.sleep(0.05)
+        asc = Autoscaler(rt, [NodeTypeConfig("cpu64", {"CPU": 64.0, "memory": 256 * gib}, 0, 4),
+                              NodeTypeConfig("cpu32", {"CPU": 32.0, "memory": 128 * gib}, 0, 2)],
+                         idle_timeout_s=3600.0)
+        check(asc.device == rt.sched_device and asc.device.type == device,
+              f"autoscaler: packing on {asc.device}, not the runtime's {rt.sched_device}")
+        packs = []
+        pack_or_solve = asc._packer.pack_or_solve
+
+        def _recorded(ids, rows, demands):
+            out = pack_or_solve(ids, rows, demands)
+            packs.append((list(ids), np.array(rows, dtype=np.float32), np.array(demands),
+                          np.array(out)))
+            return out
+
+        asc._packer.pack_or_solve = _recorded
+        runs0, falls0 = B.SOLVER_RUNS.value(), B.SOLVER_FALLBACKS.value()
+        tick_ms, launched = [], {}
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 300
+        while True:
+            t = time.perf_counter()
+            d = asc.tick()
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+            for k, v in d.launch.items():
+                launched[k] = launched.get(k, 0) + v
+            ready, _ = rtt.wait(refs, num_returns=len(refs), timeout=0.5)
+            if len(ready) == len(refs):
+                break
+            check(time.monotonic() < deadline,
+                  f"autoscaler: {len(refs) - len(ready)} of {backlog} tasks never ran")
+        wall = time.perf_counter() - t0
+        check(rtt.get(refs, timeout=120) == list(range(backlog)),
+              "autoscaler: a task returned a wrong value")
+        check(sum(launched.values()) > 0 and len(rt.nodes) > 256,
+              f"autoscaler: launched {launched}, {len(rt.nodes)} nodes")
+        runs = B.SOLVER_RUNS.value() - runs0
+        check(runs > 0, "autoscaler: no pack went through the solve")
+        check(B.SOLVER_FALLBACKS.value() == falls0, "autoscaler: a solve fell back to first-fit")
+        check(any(p[2].shape[0] >= 64 for p in packs), "autoscaler: no batch of 64 or more")
+        for i, (ids, rows, demands, out) in enumerate(packs):
+            again = B.DeltaBinPacker(device="cpu").pack_or_solve(ids, rows, demands)
+            check(np.array_equal(again, out),
+                  f"autoscaler: pack {i} of {len(packs)} ({demands.shape[0]} demands on "
+                  f"{len(ids)} nodes) gives other rows on the CPU")
+        print(f"autoscaler runtime [{device}]: {backlog} tasks in {len(AUTOSCALE_SHAPES)} shapes "
+              f"parked on 256 nodes; {len(tick_ms)} ticks, first {tick_ms[0]:.3f} ms, ms per "
+              f"tick p50/p99 {_pcts(tick_ms)}; launched {launched}; every value back in "
+              f"{wall:.1f} s; SOLVER_RUNS +{runs}, SOLVER_FALLBACKS +0; {len(packs)} "
+              f"pack_or_solve calls (largest {max(p[2].shape[0] for p in packs)} demands on "
+              f"{max(len(p[0]) for p in packs)} nodes) replayed on the CPU, every row equal")
+    finally:
+        rtt.shutdown()
+
+
+def _payload_cpu(i):
+    return bytes([i % 251]) * 64
+
+
+def autoscaler_cluster(device: str):
+    """A two-agent ``Cluster`` with the head's elasticity controller on
+    (``RAY_TPU_ELASTIC_CONTROLLER=1``) and ``attach_elasticity_provider``
+    as its node lifecycle: a parked burst of 3-CPU tasks, which neither
+    2-CPU agent holds, provisions 4-CPU agents; every value returns; the
+    idle fleet drains and retires. The controller's solves run on the
+    head's scheduler device."""
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.scheduler import elasticity as E
+
+    env = {"RAY_TPU_ELASTIC_CONTROLLER": "1", "RAY_TPU_ELASTIC_TICK_S": "0.2",
+           "RAY_TPU_ELASTIC_IDLE_RETIRE_S": "2.0", "RAY_TPU_ELASTIC_MIN_NODES": "2"}
+    os.environ.update(env)
+    solves0 = E.ELASTIC_TICKS.value({"path": "solve"})
+    fallback0 = E.ELASTIC_TICKS.value({"path": "first_fit"})
+    try:
+        c = _cluster(device)
+        ctrl = c.head._elasticity
+        try:
+            check(c.head.sched_device.type == device,
+                  f"autoscaler cluster: the controller solves on {c.head.sched_device}")
+            c.add_node({"CPU": 2.0}, num_workers=1)
+            c.add_node({"CPU": 2.0}, num_workers=1)
+            client = c.client()
+            set_runtime(client)
+            try:
+                provider = c.attach_elasticity_provider(resources={"CPU": 4.0}, num_workers=2,
+                                                        max_nodes=4)
+                t0 = time.perf_counter()
+                f = rtt.remote(_payload_cpu).options(num_cpus=3.0, max_retries=0)
+                refs = [f.remote(i) for i in range(24)]
+                check(rtt.get(refs, timeout=180) == [bytes([i]) * 64 for i in range(24)],
+                      "autoscaler cluster: a task returned a wrong value")
+                up_s = time.perf_counter() - t0
+                peak = sum(1 for n in rtt.nodes() if n["Alive"])
+                check(len(provider.created) >= 1, "autoscaler cluster: nothing was provisioned")
+                deadline = time.monotonic() + 90
+                while not provider.terminated:
+                    check(time.monotonic() < deadline, "autoscaler cluster: nothing retired")
+                    time.sleep(0.2)
+                down_s = time.perf_counter() - t0
+                pct = ctrl.tick_percentiles()
+                solves = E.ELASTIC_TICKS.value({"path": "solve"}) - solves0
+                check(solves > 0, "autoscaler cluster: no controller tick solved")
+                check(E.ELASTIC_TICKS.value({"path": "first_fit"}) == fallback0,
+                      "autoscaler cluster: a tick's solve failed over to first-fit")
+                print(f"autoscaler cluster [{device}]: 24 tasks of 3 CPU on two 2-CPU agents: "
+                      f"provisioned {len(provider.created)} 4-CPU agents, every value back in "
+                      f"{up_s:.1f} s ({peak} agents at the peak); retired "
+                      f"{len(provider.terminated)} by {down_s:.1f} s; {ctrl.ticks} controller "
+                      f"ticks ({solves:.0f} solved on {c.head.sched_device}, the rest had no "
+                      f"demand), ms per tick p50 {pct['p50_ms']:.3f} p99 {pct['p99_ms']:.3f}")
+            finally:
+                set_runtime(None)
+                client.shutdown()
+        finally:
+            # the controller provisions from its own thread: stop it before
+            # the cluster tears its agents down
+            ctrl.stop()
+            if ctrl._thread is not None:
+                ctrl._thread.join(timeout=10)
+            c.shutdown()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def phase_autoscaler(device: str = "cuda"):
+    _platform_env(device)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    try:
+        autoscaler_runtime(device)
+        errors.check("autoscaler in the local runtime")
+        autoscaler_cluster(device)
+        errors.check("autoscaler in the cluster")
+    finally:
+        errors.close()
+    print(f"autoscaler phase: {time.perf_counter() - t0:.1f} s")
+
+
+STANDBY_PAYLOAD = 200 * 1024
+
+
+def phase_standby(device: str = "cuda", num_tasks: int = 300):
+    """A ``Cluster`` whose head state is on the card, with a warm standby
+    (``start_standby``) tailing its WAL: ``num_tasks`` tasks, then the
+    leader dies; the standby promotes onto the leader's port with its own
+    scheduler state on the card, and a task and an actor created after the
+    promotion return."""
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.cluster.replication import FAILOVER_MS
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    _platform_env(device)
+    env = {"RAY_TPU_HEAD_HEALTH_TIMEOUT_S": "1.5", "RAY_TPU_HEALTH_TIMEOUT_S": "4.0"}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    try:
+        with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_standby_") as d:
+            c = _cluster(device, persist_path=os.path.join(d, "head_state.pkl"))
+            try:
+                c.add_node({"CPU": 4.0}, num_workers=2)
+                c.add_node({"CPU": 4.0}, num_workers=2)
+                client = c.client()
+                set_runtime(client)
+                try:
+                    standby = c.start_standby(auto_promote=True)
+                    f = rtt.remote(_payload).options(num_cpus=0.5, max_retries=20)
+                    # results above the inline limit live in the agents' stores
+                    refs = [f.remote(i, STANDBY_PAYLOAD) for i in range(num_tasks)]
+                    check(rtt.get(refs, timeout=180) == [_payload(i, STANDBY_PAYLOAD)
+                                                         for i in range(num_tasks)],
+                          "standby: a task before the failover returned a wrong value")
+                    pre_epoch = c.head.cluster_epoch
+                    n0, s0 = FAILOVER_MS.summary()["count"], FAILOVER_MS.summary()["sum"]
+                    t_kill = time.perf_counter()
+                    c.kill_head()
+                    head = standby.wait_promoted(timeout=60.0)
+                    detect_s = time.perf_counter() - t_kill
+                    check(head is not None, "standby: never promoted")
+                    check(c.head is head and head.address == c.address,
+                          "standby: the promoted head is not on the leader's port")
+                    check(head.cluster_epoch > pre_epoch, "standby: the epoch did not rise")
+                    check(head.device_state is not None
+                          and head.device_state.device.type == device,
+                          f"standby: the promoted head's scheduler state is not on {device}")
+                    check(rtt.get(f.remote(7, 64), timeout=120) == _payload(7, 64),
+                          "standby: a task after the promotion returned a wrong value")
+                    act = rtt.remote(_Ordered).remote()
+                    check(rtt.get([act.push.remote(i) for i in range(3)], timeout=120)
+                          == [1, 2, 3], "standby: an actor after the promotion answered wrong")
+                    check(rtt.get(refs[-1], timeout=60)
+                          == _payload(num_tasks - 1, STANDBY_PAYLOAD),
+                          "standby: a pre-failover ref does not resolve")
+                    s = FAILOVER_MS.summary()
+                    check(s["count"] == n0 + 1, "standby: FAILOVER_MS did not record one")
+                    print(f"standby [{device}]: {num_tasks} tasks, leader killed; promoted onto "
+                          f"{head.address} with its state on "
+                          f"{head.device_state.device}, epoch {pre_epoch} -> "
+                          f"{head.cluster_epoch}; FAILOVER_MS {s['sum'] - s0:.3f} ms (bind and "
+                          f"bring-up); leader death to promoted head {detect_s:.3f} s "
+                          f"(head_health_timeout_s 1.5); a task and an actor after it returned")
+                finally:
+                    set_runtime(None)
+                    client.shutdown()
+            finally:
+                c.shutdown()
+        errors.check("standby")
+    finally:
+        errors.close()
+        for k in env:
+            os.environ.pop(k, None)
+    print(f"standby phase: {time.perf_counter() - t0:.1f} s")
+
+
+PR_SET_CHILD_SUBREAPER = 36  # linux/prctl.h
+
+
+def become_subreaper() -> None:
+    """Orphans of the processes this script starts (a worker whose agent
+    died first) are re-parented to this process rather than to init, so
+    ``descendants`` sees them."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail(f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+
+
+def descendants() -> dict:
+    """pid -> command line of every live process below this one; reaps
+    this process's own children that have exited."""
+    parent_of, zombies = {}, []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state in ("Z", "X"):
+            zombies.append((int(entry), int(ppid)))
+        else:
+            parent_of[int(entry)] = int(ppid)
+    me = os.getpid()
+    for pid, ppid in zombies:
+        if ppid == me:
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+    live = {}
+    for pid in parent_of:
+        q = parent_of[pid]
+        while q not in (me, 0) and q in parent_of:
+            q = parent_of[q]
+        if q == me:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    live[pid] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            except OSError:
+                pass
+    return live
+
+
+def stop_descendants(grace_s: float) -> dict:
+    """Waits up to ``grace_s`` for every process below this one to end,
+    then kills what is left; returns what was left (pid -> command line)."""
+    deadline = time.monotonic() + grace_s
+    left = descendants()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.2)
+        left = descendants()
+    killed = dict(left)
+    for _ in range(50):
+        if not left:
+            break
+        for pid in left:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        time.sleep(0.1)
+        left = descendants()
+        killed.update(left)
+    return killed
+
+
+def phase_processes(grace_s: float = 20.0) -> None:
+    """Every process the phases started has ended within ``grace_s`` of
+    the last phase; what is left is killed and the run fails naming it."""
+    t0 = time.perf_counter()
+    left = stop_descendants(grace_s)
+    check(not left, f"{len(left)} processes outlived the phases that started them "
+                    f"(killed after {grace_s:.0f} s): "
+                    + "; ".join(f"{pid} {cmd[:160]}" for pid, cmd in sorted(left.items())))
+    print(f"processes: every process the phases started has ended "
+          f"({time.perf_counter() - t0:.1f} s after the last phase)")
+
+
 def main() -> None:
+    become_subreaper()
+    atexit.register(stop_descendants, 2.0)
     phase_card_and_build()
     flash_row = phase_flash()
     bwd_rows = phase_flash_backward()
@@ -2015,6 +2642,11 @@ def main() -> None:
     phase_scheduler()
     phase_runtime()
     phase_cluster()
+    phase_sim()
+    phase_elasticity()
+    phase_autoscaler()
+    phase_standby()
+    phase_processes()
     kernels = [
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",

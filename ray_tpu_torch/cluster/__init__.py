@@ -5,10 +5,10 @@ Lazy exports keep worker-subprocess startup light (head/agent pull in the
 scheduler programs; workers only need rpc + common).
 
 Port of ``ray_tpu/cluster/``: the head (whose rounds run on the scheduler
-device, ``cuda`` unless ``RAY_TPU_SCHED_PLATFORM=cpu``), agents, workers,
-zygote, client, wire format, RPC, transport, object plane, WAL and jobs.
-Not ported yet (ROADMAP Queue A): ``standby.py`` (item 2), the dashboard
-(item 3), and the device plane's CUDA frames (item 6).
+device, ``cuda`` unless ``RAY_TPU_SCHED_PLATFORM=cpu``), the warm standby,
+agents, workers, zygote, client, wire format, RPC, transport, object plane,
+WAL and jobs. Not ported yet (ROADMAP Queue A): the dashboard and the device
+plane's CUDA frames.
 """
 from typing import Any
 

@@ -9,9 +9,7 @@ transfer, and failure handling are exercised across genuine process
 boundaries on one machine.
 
 Port of ``ray_tpu/cluster/cluster_utils.py``, copied with its imports
-rewritten. ``start_standby`` raises until ``cluster/standby.py`` is ported
-(ROADMAP Queue A item 2), and ``attach_elasticity_provider`` until the
-autoscaler is (item 4); its ``ClusterProvider`` comes with it.
+rewritten.
 """
 from __future__ import annotations
 
@@ -72,10 +70,18 @@ class Cluster:
         leader. With ``auto_promote`` it detects leader death via the
         strike-based watch loop and promotes itself onto the leader's
         port; ``cluster.head`` swaps to the promoted instance."""
-        raise NotImplementedError(
-            "warm standby heads need ray_tpu_torch.cluster.standby, which is "
-            "not ported yet (ROADMAP Queue A item 2)"
+        from .standby import StandbyHead
+
+        if self.standby is not None:
+            self.standby.shutdown()
+        self.standby = StandbyHead(
+            self.address,
+            persist_path=self._persist_path,
+            auto_promote=auto_promote,
+            use_device_scheduler=self._use_device_scheduler,
         )
+        self.standby.on_promoted = self._adopt_head
+        return self.standby
 
     def _adopt_head(self, head: HeadServer) -> None:
         self.head = head
@@ -233,10 +239,14 @@ class Cluster:
         """Wire this harness in as the elasticity controller's agent
         lifecycle: provisions become real ``add_node`` subprocesses,
         retirements real drains. Returns the provider."""
-        raise NotImplementedError(
-            "the elasticity provider drives the autoscaler's node lifecycle, "
-            "which is not ported yet (ROADMAP Queue A item 4)"
+        provider = ClusterProvider(
+            self,
+            resources=resources,
+            num_workers=num_workers,
+            max_nodes=max_nodes,
         )
+        self.head._elasticity.attach_provider(provider)
+        return provider
 
     # ------------------------------------------------------------------
     # chaos fault surface (ray_tpu_torch.chaos rides these)
@@ -305,3 +315,52 @@ class Cluster:
             except subprocess.TimeoutExpired:
                 proc.kill()
         self._agents.clear()
+
+
+class ClusterProvider:
+    """The elasticity controller's node lifecycle against a local
+    :class:`Cluster` — the in-process analog of a cloud provider's
+    instance API. ``create_node`` launches a real agent subprocess;
+    ``drain_node``/``terminate_node`` retire one. ``max_nodes`` bounds
+    runaway provisioning the way a cloud quota would."""
+
+    def __init__(
+        self,
+        cluster: Cluster,
+        resources: Optional[Dict[str, float]] = None,
+        num_workers: int = 1,
+        max_nodes: int = 8,
+    ):
+        self.cluster = cluster
+        self.resources = dict(resources or {"CPU": 2.0})
+        self.num_workers = num_workers
+        self.max_nodes = max_nodes
+        self.created: List[str] = []
+        self.terminated: List[str] = []
+
+    def node_template(self) -> Dict[str, float]:
+        return dict(self.resources)
+
+    def create_node(self) -> Optional[str]:
+        if len(self.cluster._agents) >= self.max_nodes:
+            return None
+        node_id = self.cluster.add_node(
+            resources=dict(self.resources),
+            num_workers=self.num_workers,
+            wait=False,
+        )
+        self.created.append(node_id)
+        return node_id
+
+    def drain_node(self, node_id: str, deadline_s: float) -> bool:
+        ok = self.cluster.drain_node(node_id, deadline_s=deadline_s)
+        if ok:
+            self.terminated.append(node_id)
+        return ok
+
+    def terminate_node(self, node_id: str) -> bool:
+        if node_id not in self.cluster._agents:
+            return False
+        self.cluster.kill_node(node_id)
+        self.terminated.append(node_id)
+        return True

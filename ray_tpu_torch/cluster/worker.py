@@ -1816,17 +1816,29 @@ class Worker:
                 self._env_undo = lambda: None
         return {"ok": True}
 
-    def serve_forever(self) -> None:
+    def serve_forever(self, parent: int) -> None:
         while True:
             time.sleep(1.0)
-            if os.getppid() == 1:  # agent died; don't linger
+            # the process that started this one (agent or zygote) died: an
+            # orphan is re-parented to init or to a subreaper, so test for
+            # a change of parent, not for pid 1; don't linger
+            if os.getppid() != parent:
                 os._exit(0)
 
 
-def run_worker(agent_address: str, worker_id: str, store_path: str) -> None:
+def run_worker(
+    agent_address: str,
+    worker_id: str,
+    store_path: str,
+    parent: Optional[int] = None,
+) -> None:
     """Process entry shared by the cold spawn path (``main``) and the
     zygote fork path (``zygote._child_main``): diagnostics hooks, then the
-    Worker loop. Never returns."""
+    Worker loop. ``parent`` is the pid of the process that started this
+    one (default: the parent now); the worker exits once it changes.
+    Never returns."""
+    if parent is None:
+        parent = os.getppid()
     logging.basicConfig(level=logging.WARNING)
     # stuck-worker diagnosis: `kill -USR1 <pid>` dumps all thread stacks
     import faulthandler
@@ -1849,7 +1861,7 @@ def run_worker(agent_address: str, worker_id: str, store_path: str) -> None:
             )
 
         _sig.signal(_sig.SIGUSR2, _dump)
-    worker.serve_forever()
+    worker.serve_forever(parent)
 
 
 def seal_local_value(value: Any, owner: str = "") -> Optional[str]:

@@ -23,8 +23,9 @@ Design constraints that keep fork safe:
   workers never mint ids from an inherited entropy buffer.
 
 Lifecycle chaining: the zygote exits on stdin EOF (its agent died), and
-forked workers exit when ``os.getppid() == 1`` (their zygote died) —
-the same orphan checks the cold path relies on, one level deeper.
+forked workers exit when their parent pid is no longer the zygote's
+(their zygote died) — the same orphan check the cold path relies on, one
+level deeper.
 
 Protocol (one JSON object per line):
 
@@ -266,7 +267,7 @@ def _reap(_sig=None, _frm=None) -> None:
         pass
 
 
-def _child_main(agent_address: str, store_path: str, req: dict) -> None:
+def _child_main(agent_address: str, store_path: str, req: dict, zygote_pid: int) -> None:
     """Runs in the forked child: detach from the zygote's protocol pipes,
     apply per-worker env, become a normal worker process."""
     import signal
@@ -280,7 +281,7 @@ def _child_main(agent_address: str, store_path: str, req: dict) -> None:
         os.environ[k] = str(v)
     from . import worker as worker_mod
 
-    worker_mod.run_worker(agent_address, req["worker_id"], store_path)
+    worker_mod.run_worker(agent_address, req["worker_id"], store_path, parent=zygote_pid)
 
 
 def main() -> None:
@@ -334,6 +335,7 @@ def main() -> None:
         if cmd != "fork":
             reply({"error": "unknown cmd"})
             continue
+        zygote_pid = os.getpid()
         try:
             pid = os.fork()
         except OSError as exc:
@@ -341,7 +343,7 @@ def main() -> None:
             continue
         if pid == 0:
             try:
-                _child_main(args.agent, args.store, req)
+                _child_main(args.agent, args.store, req, zygote_pid)
             finally:
                 os._exit(1)
         reply({"pid": pid})

@@ -13,8 +13,7 @@ the caller passes ``cpu``) and every policy is a batched program:
   node-type utilization scorer.
 - device.py    — DeviceSchedulerState: resident arrays, delta sync,
   pipelined rounds; pipeline.py and unpark.py around it.
-
-``sim.py`` waits for the port of ``cluster/head.py``.
+- sim.py       — the simulated-scale harness that drives the real head.
 """
 from .resources import (  # noqa: F401
     CPU,

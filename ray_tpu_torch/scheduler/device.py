@@ -579,7 +579,9 @@ class DeviceSchedulerState:
         ``counts_by_slot``: pending request count per ring slot. Returns
         (placed int32[S], per_node int32[S,N], preempt int32[S]) on the
         host. Only the count (and age) vectors cross to the device; the
-        shapes are already resident.
+        shapes are already resident. The program walks only the slots
+        with a count, which the host knows (an empty slot's rows are
+        zero, -1 for preempt).
         """
         from ..config import cfg
         from .hybrid import ring_schedule_impl
@@ -616,6 +618,7 @@ class DeviceSchedulerState:
                 spread_threshold=spread_threshold,
                 weights=weights,
                 preempt=preempt,
+                slots=np.flatnonzero(counts).tolist(),
             )
             self._avail = res.avail_out
         placed = res.placed.cpu().numpy()
@@ -628,15 +631,12 @@ class DeviceSchedulerState:
 
     def shape_slots(self, shapes: np.ndarray) -> np.ndarray:
         """int64[S] grantable-slot estimate per demand shape, computed on
-        the resident arrays in one dispatch. Shapes are bucket-padded with
-        _BIG rows (0 slots)."""
+        the resident arrays in one dispatch. Only the real shapes go: the
+        reference's bucket pad (rows of _BIG, 0 slots each) kept its jit
+        cache small, and an eager program would walk each pad row."""
         from .hybrid import shape_slots_impl
 
-        s = shapes.shape[0]
-        r = self._totals.shape[1]
-        s_pad = _bucket(s, 1)
-        mat = np.full((s_pad, r), _BIG, dtype=np.float32)
-        mat[:s] = shapes
+        mat = np.ascontiguousarray(shapes, dtype=np.float32)
         with self._lock:
             res = shape_slots_impl(
                 self._totals,
@@ -644,7 +644,7 @@ class DeviceSchedulerState:
                 self._alive,
                 _upload(mat, self.device),
             )
-        return res.cpu().numpy()[:s].astype(np.int64)
+        return res.cpu().numpy().astype(np.int64)
 
     # -- prewarm ---------------------------------------------------------
 

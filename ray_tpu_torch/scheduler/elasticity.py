@@ -790,8 +790,12 @@ class ElasticityController:
         matrix = assemble_demand(snap, pack_key=self._pack_key)
         for name, n in matrix.class_counts().items():
             ELASTIC_DEMAND_ROWS.set(n, labels={"cls": name})
+        # the head's scheduler device: the card, or the host only under
+        # RAY_TPU_SCHED_PLATFORM=cpu (or for a golden-model head)
+        device = self.head.sched_device
         solved = solve_demand(
-            avail, matrix, hypo_rows=self._hypo_rows(snap.width)
+            avail, matrix, hypo_rows=self._hypo_rows(snap.width),
+            device=device,
         )
         plan = build_plan(
             snap,
@@ -799,6 +803,7 @@ class ElasticityController:
             solved,
             idle_since=self._idle_since,
             now=now,
+            device=device,
         )
         plan.tick_ms = (time.perf_counter() - t0) * 1000.0
         plan.demand_rows = matrix.rows

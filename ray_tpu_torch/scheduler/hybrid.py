@@ -675,10 +675,17 @@ class RingResult(NamedTuple):
 
 def ring_schedule_impl(totals, avail, alive, ntypes, thr, ring_shapes, counts, ages, seed, *,
                        spread_threshold: float = 0.5, weights: ScoreWeights = ScoreWeights(),
-                       preempt: bool = False, device=None) -> RingResult:
+                       preempt: bool = False, slots=None, device=None) -> RingResult:
     """Count-driven waterfall over the parked-demand ring: the round's
     placement math, with demand as (resident shape row, count) pairs and
-    per-node placement counts as the result."""
+    per-node placement counts as the result.
+
+    ``slots`` (host ints, ascending) are the slots the walk visits; None
+    visits all of them, as the reference's scan does. A slot with no
+    demand places nothing, leaves ``avail`` as it is and nominates no
+    victim, so skipping it gives the same bits: its row is ``placed`` 0,
+    a zero ``per_node`` row and ``preempt`` -1. Each visited slot keeps
+    the jitter of its own index (``fold_in(key, slot)``)."""
     dev = _device_of(device, totals, avail)
     totals = _t(totals, dev, torch.float32)
     avail_run = _t(avail, dev, torch.float32)
@@ -690,19 +697,26 @@ def ring_schedule_impl(totals, avail, alive, ntypes, thr, ring_shapes, counts, a
     ages = _t(ages, dev, torch.float32)
     n = totals.shape[0]
     s = ring_shapes.shape[0]
+    slots = list(range(s)) if slots is None else [int(i) for i in slots]
+    placed_out = torch.zeros((s,), dtype=torch.int32, device=dev)
+    per_node_out = torch.zeros((s, n), dtype=torch.int32, device=dev)
+    preempt_out = torch.full((s,), -1, dtype=torch.int32, device=dev)
+    if not slots:
+        return RingResult(placed_out, per_node_out, avail_run, preempt_out)
+    slot_idx = _t(np.asarray(slots, dtype=np.int64), dev, torch.int64)
     base_key = _jaxrng.prng_key(_seed_int(seed), dev)
-    jitters = _jaxrng.uniform(_jaxrng.fold_in(base_key, torch.arange(s, device=dev)), (n,))
+    jitters = _jaxrng.uniform(_jaxrng.fold_in(base_key, slot_idx), (n,))
     if weights.frag:
         ref = _reference_shape(ring_shapes, counts > 0)
     else:
         ref = torch.zeros((ring_shapes.shape[1],), dtype=torch.float32, device=dev)
     placed_all, per_node_all, preempt_all = [], [], []
-    for uidx in range(s):
+    for j, uidx in enumerate(slots):
         d = ring_shapes[uidx]
         want = counts[uidx].to(torch.float32)
         cap, has_demand, feas = _shape_capacity(totals, avail_run, alive, d)
         score = _critical_score(totals, avail_run, spread_threshold)
-        jitter = jitters[uidx]
+        jitter = jitters[j]
         cost = _shape_cost(totals, avail_run, d, cap, score, jitter, ages[uidx], ntypes, thr,
                            ref, weights)
         node_order = _stable_argsort(cost)
@@ -720,15 +734,13 @@ def ring_schedule_impl(totals, avail, alive, ntypes, thr, ring_shapes, counts, a
         if preempt:
             preempt_all.append(_nominate_preemption(feas, cap, score, jitter, ages[uidx],
                                                     placed < want))
-        else:
-            preempt_all.append(torch.full((), -1, dtype=torch.int32, device=dev))
         placed_all.append(_to_i32(placed))
         per_node_all.append(_to_i32(per_node))
-    if s:
-        return RingResult(torch.stack(placed_all), torch.stack(per_node_all), avail_run,
-                          torch.stack(preempt_all))
-    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
-    return RingResult(empty, torch.zeros((0, n), dtype=torch.int32, device=dev), avail_run, empty)
+    placed_out.index_copy_(0, slot_idx, torch.stack(placed_all))
+    per_node_out.index_copy_(0, slot_idx, torch.stack(per_node_all))
+    if preempt:
+        preempt_out.index_copy_(0, slot_idx, torch.stack(preempt_all))
+    return RingResult(placed_out, per_node_out, avail_run, preempt_out)
 
 
 def shape_slots_impl(totals, avail, alive, shapes, *, device=None) -> torch.Tensor:

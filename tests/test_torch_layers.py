@@ -99,6 +99,8 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "import ray_tpu_torch.llm.engine, ray_tpu_torch.llm.continuous\n"
         "import ray_tpu_torch.cluster.head, ray_tpu_torch.cluster.agent\n"
         "import ray_tpu_torch.cluster.worker, ray_tpu_torch.cluster.client\n"
+        "import ray_tpu_torch.autoscaler, ray_tpu_torch.scheduler.sim\n"
+        "import ray_tpu_torch.cluster.standby, ray_tpu_torch.autoscaler.gce\n"
         "import torch\n"
         "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
         "from ray_tpu_torch.models import transformer as tfm\n"

@@ -205,12 +205,7 @@ CLUSTER_DIR = os.path.join(
 
 # methods invoked through indirection the AST scan can't see, or served
 # by processes outside ray_tpu_torch/cluster (keep this list SHORT and justified)
-ALLOWED_UNREGISTERED: set = {
-    # served by the warm standby (cluster/standby.py), which the port has
-    # not ported yet (ROADMAP Queue A item 2): the head ships WAL batches
-    # only to standbys registered through StandbyHello, so none is sent
-    "ReplWal",
-}
+ALLOWED_UNREGISTERED: set = set()
 
 
 def _cluster_sources():
