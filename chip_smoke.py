@@ -102,12 +102,34 @@ passes or exits non-zero:
    tasks, kills the leader: the standby promotes onto the leader's port
    with its scheduler state on the card, a task and an actor created after
    the promotion return, and ``FAILOVER_MS`` is printed;
-13. checks that every process the phases started (agents, zygotes,
+13. serves the head's dashboard (``dashboard_port=0``, the standard
+   library's ``ThreadingHTTPServer``) over two agents, tasks, two actors
+   and a STRICT_SPREAD group: every route fetched with ``urllib`` and held
+   against the cluster's own state, a job submitted through the REST API
+   with its status and logs, 404 and 405 where the reference gives them,
+   the Prometheus scrape parser-valid with the scheduler's ``sched_*_ms``
+   histograms; then ``util.state`` on the in-process runtime after 2,000
+   tasks;
+14. runs bench.py's tier 4 and 4b on the port's ``Cluster`` (three
+   ``_Stage`` actors: 20 eager chains against 200 compiled executions,
+   then ``compile_pipeline`` over 100 warm-up and 4,000 timed items,
+   ``respilled`` and ``broken`` 0), a CUDA tensor through two actors' ring
+   edges (it lands on the card, bytes equal) and a 64 MiB CUDA tensor
+   through the in-process runtime's local edges (same ``data_ptr()``);
+15. runs bench.py's ``device_xfer_bench``: a CUDA block made on one node,
+   pulled inside a worker of another that lands it on the card, 32 MiB × 5
+   and 256 MiB × 2, with the device plane on and with the kill switch
+   (``RAY_TPU_DEVICE_PLANE=0``, the host bounce): MB/s, the counters
+   (seals, device lands, pump chunks, landing-zone chunks of the driver's
+   ``rdt.get_tensor``), where it landed and whether its bytes equal the
+   source's; then the card's pinned D2H and H2D rates as the yardstick.
+   Every result line of 13-15 carries the card's name and power limit;
+16. checks that every process the phases started (agents, zygotes,
    workers) has ended: the script is its descendants' subreaper, so a
    worker orphaned by its agent's death is found too; what is left after
    20 s is killed and the run fails naming it. On any exit, whatever is
    left below the script is killed;
-14. prints the kernel table as one JSON line, then the result line.
+17. prints the kernel table as one JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -2542,6 +2564,766 @@ def phase_standby(device: str = "cuda", num_tasks: int = 300):
     print(f"standby phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --- the dashboard and the state API, compiled DAGs and pipelines, and ---
+# --- device frames for CUDA tensors                                    ---
+
+_SMI = {}
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them, printed
+    beside every number the last three phases measure."""
+    if "line" not in _SMI:
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True, timeout=60,
+            ).stdout.strip()
+        except (OSError, subprocess.SubprocessError):
+            out = "no card (a CPU rehearsal)"
+        _SMI["line"] = out
+    return _SMI["line"]
+
+
+def _square(x):
+    return x * x
+
+
+def _http(url: str, method: str = "GET", body=None):
+    """(status, content type, body bytes) of one dashboard request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(), method=method,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers.get("Content-Type", ""), exc.read()
+
+
+def _get_json(url: str):
+    status, ctype, body = _http(url)
+    check(status == 200 and ctype.startswith("application/json"),
+          f"dashboard: {url} answered {status} {ctype!r}")
+    return json.loads(body)
+
+
+def dashboard_routes(c, client, rtt, actors, pg) -> None:
+    """Every route of the head's dashboard, each answer checked against
+    the cluster's own state."""
+    from ray_tpu_torch.util.metrics import validate_exposition
+
+    head = c.head
+    base = f"http://127.0.0.1:{head.dashboard.port}"
+    t0 = time.perf_counter()
+    status, ctype, body = _http(base + "/")
+    check(status == 200 and b"ray_tpu cluster" in body, f"dashboard /: {status}")
+    status, ctype, body = _http(base + "/ui")
+    check(status == 200 and ctype.startswith("text/html")
+          and all(f'<table id="{t}">'.encode() in body
+                  for t in ("nodes", "actors", "pgs", "jobs", "rpc")),
+          f"dashboard /ui: {status}, tables missing")
+    info = head._h_cluster_info(None)
+    nodes = _get_json(base + "/api/nodes")
+    check(len(nodes) == len(info["nodes"]) == 2 and all(n["Alive"] for n in nodes)
+          and {n["NodeID"] for n in nodes} == {n["NodeID"] for n in info["nodes"]},
+          f"dashboard /api/nodes: {len(nodes)} nodes against the head's {len(info['nodes'])}")
+    status_body = _get_json(base + "/api/cluster_status")
+    check({"metrics", "nodes", "head_address", "leases"} <= set(status_body)
+          and status_body["head_address"] == head.address,
+          f"dashboard /api/cluster_status: keys {sorted(status_body)}")
+    for n in nodes:
+        debug = _get_json(f"{base}/api/nodes/{n['NodeID']}/debug")
+        check({"available", "store", "rpc_handlers", "oom_kills"} <= set(debug),
+              f"dashboard node debug: keys {sorted(debug)}")
+    check("error" in _get_json(base + "/api/nodes/nope/debug"),
+          "dashboard: an unknown node's debug answered without an error")
+    rpc = _get_json(base + "/api/rpc_stats")
+    check(isinstance(rpc, dict) and rpc, "dashboard /api/rpc_stats: empty")
+    listed = _get_json(base + "/api/actors")
+    want = {a._actor_id for a in actors}
+    alive = {a["actor_id"] for a in listed if a.get("state") == "ALIVE"}
+    check(want <= alive and len(listed) == len(head._h_query_state({"kind": "actors"})),
+          f"dashboard /api/actors: {len(listed)} rows, ours alive {len(want & alive)} of {len(want)}")
+    objects = _get_json(base + "/api/objects")
+    check(isinstance(objects, list), "dashboard /api/objects: not a list")
+    pgs = _get_json(base + "/api/placement_groups")
+    check(any(p.get("pg_id") == pg.id and p.get("ready") for p in pgs)
+          and len(pgs) == len(head._h_query_state({"kind": "placement_groups"})),
+          f"dashboard /api/placement_groups: {len(pgs)} rows, ours missing")
+    # a job through the REST API, its status and its logs
+    status, _, body = _http(base + "/api/jobs", "POST",
+                            {"entrypoint": f"{sys.executable} -c \"print('dashboard-job')\""})
+    check(status == 200, f"dashboard POST /api/jobs: {status}")
+    job_id = json.loads(body)["job_id"]
+    deadline = time.monotonic() + 120
+    job = {}
+    while time.monotonic() < deadline:
+        job = _get_json(f"{base}/api/jobs/{job_id}")
+        if job["status"] in ("SUCCEEDED", "FAILED", "STOPPED"):
+            break
+        time.sleep(0.2)
+    check(job.get("status") == "SUCCEEDED", f"dashboard job: {job}")
+    status, _, logs = _http(f"{base}/api/jobs/{job_id}/logs")
+    check(status == 200 and b"dashboard-job" in logs, f"dashboard job logs: {status}")
+    jobs = _get_json(base + "/api/jobs")
+    check(len(jobs) == len(head.jobs.list()) == 1 and jobs[0]["job_id"] == job_id,
+          f"dashboard /api/jobs: {len(jobs)} rows")
+    for path, want_status in (("/api/jobs/nope", 404), ("/api/jobs/nope/logs", 404),
+                              ("/api/nothing", 404)):
+        status, _, _ = _http(base + path)
+        check(status == want_status, f"dashboard {path}: {status}, not {want_status}")
+    status, _, _ = _http(base + "/api/nodes", "POST", {})
+    check(status == 405, f"dashboard POST /api/nodes: {status}, not 405")
+    # the Prometheus scrape: parser-valid, the scheduler's histograms in it
+    status, ctype, text = _http(base + "/metrics")
+    fams = validate_exposition(text.decode())
+    hists = sorted(f for f, v in fams.items()
+                   if v["kind"] == "histogram" and f.startswith("sched_"))
+    for name in ("sched_round_ms", "sched_upload_ms", "sched_kernel_ms", "sched_readback_ms"):
+        check(name in hists, f"dashboard /metrics: no {name} histogram (has {hists})")
+    rounds = sum(v for n, _, v in fams["sched_round_ms"]["samples"] if n.endswith("_count"))
+    check(rounds > 0, "dashboard /metrics: sched_round_ms counted no round")
+    check(fams["ray_tpu_nodes_alive"]["samples"][0][2] == 2,
+          "dashboard /metrics: ray_tpu_nodes_alive is not 2")
+    print(f"dashboard [{card_line()}]: 14 routes answered on ThreadingHTTPServer in "
+          f"{time.perf_counter() - t0:.2f} s: 2 nodes alive, {len(listed)} actors, "
+          f"{len(objects)} objects, {len(pgs)} placement groups, job {job['status']} with "
+          f"its logs, 404/405 where the reference answers them; /metrics parser-valid with "
+          f"{len(fams)} families, histograms {', '.join(hists)} ({rounds:.0f} head rounds)")
+
+
+def state_api_burst(device: str, num_tasks: int = 2000) -> None:
+    """``util.state`` on the in-process runtime, its rounds on ``device``,
+    after a burst of tasks."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.util import state
+
+    rt = rtt.init(num_nodes=8, resources_per_node={"CPU": 4.0})
+    try:
+        check(rt.device_state.device.type == device,
+              f"state API: the runtime's scheduler state is not on {device}")
+        f = rtt.remote(_square).options(num_cpus=0.25)
+        t0 = time.perf_counter()
+        check(rtt.get([f.remote(i) for i in range(num_tasks)], timeout=300)
+              == [i * i for i in range(num_tasks)], "state API: the burst returned wrong values")
+        burst_s = time.perf_counter() - t0
+        actor = rtt.remote(_Ordered).options(name="state-ordered").remote()
+        check(rtt.get(actor.push.remote(1), timeout=60) == 1, "state API: the actor answered wrong")
+        t0 = time.perf_counter()
+        finished = state.list_tasks(filters=[("state", "=", "FINISHED")], limit=10**9)
+        summary = state.summarize_tasks()
+        actors = state.list_actors()
+        nodes = state.list_nodes()
+        objects = state.list_objects(limit=10**9)
+        list_s = time.perf_counter() - t0
+        named = sum(1 for t in finished if t["name"] == "_square")
+        check(named == num_tasks, f"state API: {named} finished _square tasks, not {num_tasks}")
+        check(summary.get("FINISHED", 0) >= num_tasks + 1, f"state API: summary {summary}")
+        check(any(a["name"] == "state-ordered" and a["state"] == "ALIVE" for a in actors),
+              "state API: the named actor is not listed alive")
+        check(len(nodes) == 8, f"state API: {len(nodes)} nodes, not 8")
+        print(f"state API [{card_line()}]: {num_tasks} tasks in {burst_s:.2f} s on the "
+              f"runtime's {device} rounds; list_tasks/summarize/list_actors/list_nodes/"
+              f"list_objects in {list_s * 1e3:.1f} ms: {len(finished)} finished, summary "
+              f"{summary}, {len(actors)} actors, {len(nodes)} nodes, {len(objects)} objects")
+    finally:
+        rtt.shutdown()
+
+
+def phase_dashboard(device: str = "cuda"):
+    """The head's dashboard (``dashboard_port=0``) over two agents and a
+    small workload: every route fetched and checked against the cluster's
+    own state, a job through the REST API, the Prometheus scrape; then
+    the state API on the in-process runtime after a burst."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    try:
+        c = _cluster(device, dashboard=True)
+        try:
+            c.add_node({"CPU": 4.0}, num_workers=2)
+            c.add_node({"CPU": 4.0}, num_workers=2)
+            client = c.client()
+            set_runtime(client)
+            try:
+                f = rtt.remote(_square).options(num_cpus=0.25, max_retries=0)
+                check(rtt.get([f.remote(i) for i in range(200)], timeout=120)
+                      == [i * i for i in range(200)], "dashboard: the tasks returned wrong values")
+                ordered = rtt.remote(_Ordered).options(num_cpus=0.25)
+                actors = [ordered.remote(), ordered.options(name="dash-ordered").remote()]
+                check(rtt.get([a.push.remote(5) for a in actors], timeout=120) == [1, 1],
+                      "dashboard: the actors answered wrong")
+                pg = rtt.placement_group([{"CPU": 1.0}, {"CPU": 1.0}], strategy="STRICT_SPREAD")
+                check(pg.wait(timeout_seconds=60), "dashboard: the placement group never formed")
+                dashboard_routes(c, client, rtt, actors, pg)
+            finally:
+                set_runtime(None)
+                client.shutdown()
+        finally:
+            c.shutdown()
+        check(not c.head.dashboard._thread.is_alive(), "dashboard: its thread outlived the head")
+        errors.check("dashboard")
+        state_api_burst(device)
+        errors.check("state API")
+    finally:
+        errors.close()
+    print(f"dashboard phase: {time.perf_counter() - t0:.1f} s")
+
+
+class _Stage:
+    """bench.py's tier-4 stage."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def f(self, x):
+        return x + self.k
+
+
+def _pipe_inc(x):
+    return x + 1
+
+
+class _TensorStage:
+    """Doubles a tensor where it lies; reports the device it received."""
+
+    def scale(self, x):
+        return x * 2.0
+
+    def where(self, x):
+        return x.device.type
+
+
+class _Echo:
+    def echo(self, x):
+        return x
+
+
+def dag_tiers(rtt, n_exec: int = 200, n_items: int = 4000) -> dict:
+    """bench.py's tier 4 (three ``_Stage`` actors, 20 eager chains against
+    ``n_exec`` compiled executions) and tier 4b (``compile_pipeline`` over
+    two of them, 100 warm-up items and ``n_items`` timed), every value
+    checked."""
+    from ray_tpu_torch.dag import InputNode, compile_pipeline
+
+    S = rtt.remote(_Stage).options(num_cpus=0.25, max_retries=0)
+    sa, sb, sc = S.remote(1), S.remote(10), S.remote(100)
+    check(rtt.get(sc.f.remote(sb.f.remote(sa.f.remote(0))), timeout=60) == 111,
+          "dag: the eager chain returned a wrong value")
+    t0 = time.perf_counter()
+    for i in range(20):
+        check(rtt.get(sc.f.remote(sb.f.remote(sa.f.remote(i))), timeout=60) == i + 111,
+              "dag: the eager chain returned a wrong value")
+    eager_per = (time.perf_counter() - t0) / 20
+    with InputNode() as inp:
+        dag = sc.f.bind(sb.f.bind(sa.f.bind(inp)))
+    compiled = dag.experimental_compile()
+    try:
+        check(compiled.execute(0).get(timeout=60) == 111, "dag: the compiled chain's warm-up")
+        t0 = time.perf_counter()
+        refs = [compiled.execute(i) for i in range(n_exec)]
+        outs = [r.get(timeout=60) for r in refs]
+        dag_per = (time.perf_counter() - t0) / n_exec
+    finally:
+        compiled.teardown()
+    check(outs == [i + 111 for i in range(n_exec)], "dag: a compiled execution returned wrong")
+    pipe = compile_pipeline([sa, sb], [_pipe_inc, _pipe_inc], max_inflight=64)
+    try:
+        check([r.get(timeout=60) for r in pipe.map(list(range(100)))]
+              == [i + 2 for i in range(100)], "dag: the pipeline's warm-up items came back wrong")
+        t0 = time.perf_counter()
+        prefs = pipe.map(list(range(n_items)))
+        pouts = [r.get(timeout=300) for r in prefs]
+        pipe_s = time.perf_counter() - t0
+        pst = pipe.stats()
+    finally:
+        pipe.teardown()
+    check(pouts == [i + 2 for i in range(n_items)], "dag: a pipeline item came back wrong")
+    check(pst["respilled"] == 0 and pst["broken"] is None,
+          f"dag: the pipeline respilled {pst['respilled']} or broke ({pst['broken']})")
+    for h in (sa, sb, sc):
+        rtt.kill(h)
+    return {"eager_ms": eager_per * 1e3, "dag_us": dag_per * 1e6,
+            "speedup": eager_per / dag_per, "items_per_s": n_items / pipe_s,
+            "us_per_item": pipe_s / n_items * 1e6, "respilled": pst["respilled"],
+            "broken": pst["broken"]}
+
+
+def dag_cuda_ring(rtt, device: str, n: int = 1 << 22) -> None:
+    """A two-actor cluster DAG whose ring edges carry a CUDA tensor: each
+    stage doubles it on the card, and the result lands on the driver's
+    card, bytes equal to the same doubling done here."""
+    from ray_tpu_torch.dag import InputNode
+
+    T = rtt.remote(_TensorStage).options(num_cpus=0.25, max_retries=0)
+    a, b = T.remote(), T.remote()
+    with InputNode() as inp:
+        dag = b.scale.bind(a.scale.bind(inp))
+    compiled = dag.experimental_compile(buffer_size_bytes=64 << 20)
+    try:
+        x = torch.arange(n, dtype=torch.float32, device=device) * 0.5
+        t0 = time.perf_counter()
+        out = compiled.execute(x).get(timeout=120)
+        dt = time.perf_counter() - t0
+    finally:
+        compiled.teardown()
+    where = rtt.get(b.where.remote(x), timeout=60)
+    for h in (a, b):
+        rtt.kill(h)
+    check(isinstance(out, torch.Tensor) and out.device.type == device,
+          f"dag: the ring's tensor landed as {type(out).__name__} on "
+          f"{getattr(out, 'device', None)}, not {device}")
+    check(where == device, f"dag: the stage received its tensor on {where}, not {device}")
+    want = x * 4.0
+    check(torch.equal(out.view(torch.int32), want.view(torch.int32)),
+          "dag: the tensor that crossed the ring differs from the card's own doubling")
+    print(f"dag cluster ring [{card_line()}]: a {n * 4 >> 20} MiB {device} tensor through two "
+          f"actors' ring edges (each stage received it on {where}) landed on {out.device}, "
+          f"bytes equal; one execution {dt * 1e3:.1f} ms")
+
+
+def dag_local_cuda(rtt, device: str, n: int = 16 << 20) -> None:
+    """The in-process runtime: a compiled DAG whose local edges hand a 64
+    MiB CUDA tensor over by reference."""
+    from ray_tpu_torch.dag import InputNode
+
+    rt = rtt.init(num_nodes=1, resources_per_node={"CPU": 4.0})
+    try:
+        check(rt.device_state.device.type == device,
+              f"dag: the local runtime's scheduler state is not on {device}")
+        E = rtt.remote(_Echo)
+        a, b = E.remote(), E.remote()
+        with InputNode() as inp:
+            dag = b.echo.bind(a.echo.bind(inp))
+        compiled = dag.experimental_compile()
+        try:
+            x = torch.arange(n, dtype=torch.float32, device=device)
+            t0 = time.perf_counter()
+            out = compiled.execute(x).get(timeout=60)
+            dt = time.perf_counter() - t0
+        finally:
+            compiled.teardown()
+    finally:
+        rtt.shutdown()
+    check(out is x and out.data_ptr() == x.data_ptr() and out.device.type == device,
+          "dag: the local edge did not hand the tensor over by reference")
+    print(f"dag local [{card_line()}]: a {n * 4 >> 20} MiB {device} tensor through two local "
+          f"edges came back with the same data_ptr() on {out.device} in {dt * 1e3:.2f} ms")
+
+
+def phase_dag(device: str = "cuda"):
+    """bench.py's tier 4 and 4b on the port's ``Cluster`` (its head on
+    the card, two agents of 16 CPUs × 4 workers), nothing cut; then a CUDA
+    tensor through a cluster DAG's ring edges and through the local
+    runtime's edges by reference. The tensor stages inherit this
+    process's CUDA visibility (no GPU lease)."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    try:
+        c = _cluster(device)
+        try:
+            c.add_node({"CPU": 16.0}, num_workers=4)
+            c.add_node({"CPU": 16.0}, num_workers=4)
+            client = c.client()
+            set_runtime(client)
+            try:
+                m = dag_tiers(rtt)
+                print(f"dag tier 4 [{card_line()}]: compiled {m['dag_us']:.1f} us per execution "
+                      f"against the eager chain's {m['eager_ms']:.2f} ms, speed-up "
+                      f"{m['speedup']:.1f}x (200 executions, 20 chains)")
+                print(f"dag tier 4b [{card_line()}]: pipeline {m['items_per_s']:.1f} items/s, "
+                      f"{m['us_per_item']:.1f} us per item over 4000 items (max_inflight 64), "
+                      f"respilled {m['respilled']}, broken {m['broken'] or 0}")
+                dag_cuda_ring(rtt, device)
+            finally:
+                set_runtime(None)
+                client.shutdown()
+        finally:
+            c.shutdown()
+        errors.check("dag on the cluster")
+        dag_local_cuda(rtt, device)
+        errors.check("dag in the local runtime")
+    finally:
+        errors.close()
+    print(f"dag phase: {time.perf_counter() - t0:.1f} s")
+
+
+class _Source:
+    """The source node's block maker. An actor, so that the worker that
+    seals the block is the one whose counters ``counters`` reads (a plain
+    task may land on any worker of the node)."""
+
+    def make(self, n_f32: int, device: str):
+        """bench.py's block, where the worker lies: its return seals it as
+        a device frame when the plane is on (torch's reducer when off)."""
+        import torch as th
+
+        return th.arange(n_f32, dtype=th.float32, device=device) * 0.5
+
+    def counters(self):
+        from ray_tpu_torch.cluster import device_plane as dpl
+
+        return (dpl.device_stats(), dpl.device_plane_enabled(),
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+class _Sink:
+    """The destination node's puller: an actor, so every pull runs in the
+    one worker that holds the destination's GPU lease, with no lease
+    grant per pull."""
+
+    def ready(self):
+        return os.getpid()
+
+    def pull(self, hex_id: str, n_f32: int, device: str, check_bytes: bool):
+        """Timed end-device pull inside the destination worker: the fetch
+        through its agent and the landing, up to a synchronize on the
+        landed tensor (seconds); where the value landed, whether its bytes
+        equal the source's, and this process's counter deltas."""
+        import torch as th
+
+        from ray_tpu_torch.cluster import device_plane as dpl
+        from ray_tpu_torch.cluster import worker as worker_mod
+
+        before = dpl.device_stats()
+        t0 = time.perf_counter()
+        v = worker_mod.fetch_into_local_arena(hex_id, land="device")
+        landed = f"{type(v).__name__} on {v.device.type if isinstance(v, th.Tensor) else 'host'}"
+        if not (isinstance(v, th.Tensor) and v.device.type == device):
+            v = th.as_tensor(v).to(device)  # what the host bounce still owes
+        if device == "cuda":
+            th.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        equal = None
+        if check_bytes:
+            want = th.arange(n_f32, dtype=th.float32, device=device) * 0.5
+            equal = bool(th.equal(v.view(th.int32), want.view(th.int32)))
+        after = dpl.device_stats()
+        # where the time goes: the same read again, now a local arena hit,
+        # is the landing alone (deserialize and H2D), without the fetch
+        del v
+        t1 = time.perf_counter()
+        v = worker_mod.fetch_into_local_arena(hex_id, land="device")
+        if not (isinstance(v, th.Tensor) and v.device.type == device):
+            v = th.as_tensor(v).to(device)
+        if device == "cuda":
+            th.cuda.synchronize()
+        land_s = time.perf_counter() - t1
+        return dt, land_s, landed, equal, {k: after[k] - before[k] for k in after}, \
+            os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+XFER_SIZES = ((32 << 20, 5), (256 << 20, 2))  # bench.py: 32 MB x iters, 256 MB x iters // 2
+
+
+def _xfer_mode(rtt, device: str, plane: bool) -> dict:
+    """One of bench.py's ``_measure`` runs: a two-node cluster, the block
+    made on the source node, pulled inside a destination worker with the
+    destination's copy deleted between pulls; then the same block pulled
+    by this driver through ``rdt.get_tensor`` (the socket fetch with the
+    landing zone)."""
+    from ray_tpu_torch import rdt
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.cluster import device_plane as dpl
+    from ray_tpu_torch.cluster.rpc import RpcClient
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.util.tracing import SPANS
+
+    # set BEFORE the cluster spawns: sealing and landing happen in the
+    # workers, which inherit it (and in this driver, for its own pull)
+    os.environ["RAY_TPU_DEVICE_PLANE"] = "1" if plane else "0"
+    big = max(n for n, _ in XFER_SIZES)
+    cap = max(1 << 28, big * 3)
+    gpu = {"GPU": 1.0} if device == "cuda" else {}
+    sizes = {}
+    t_mode = time.perf_counter()
+    c = Cluster(use_device_scheduler=False)
+    try:
+        c.add_node({"CPU": 2.0, "srcres": 1.0, **gpu}, num_workers=1, store_capacity=cap)
+        dst = c.add_node({"CPU": 2.0, "dstres": 1.0, **gpu}, num_workers=1,
+                         store_capacity=cap)
+        client = c.client()
+        set_runtime(client)
+        try:
+            lease = {"num_gpus": 1} if device == "cuda" else {}
+            src = rtt.remote(_Source).options(resources={"srcres": 0.1}, **lease).remote()
+            sink = rtt.remote(_Sink).options(resources={"dstres": 0.1}, **lease).remote()
+            dst_agent = RpcClient(c.agent_address(dst))
+            rtt.get([src.counters.remote(), sink.ready.remote()], timeout=120)
+            setup_s = time.perf_counter() - t_mode
+            for nbytes, iters in XFER_SIZES:
+                n = nbytes // 4
+                (s0, src_on, _) = rtt.get(src.counters.remote(), timeout=120)
+                ref = src.make.remote(n, device)
+                rtt.wait([ref], timeout=300)
+                (s1, _, src_visible) = rtt.get(src.counters.remote(), timeout=120)
+                seal = {k: s1[k] - s0[k] for k in s1}
+                samples, lands, dst_delta = [], [], {}
+                landed, equal, dst_visible = set(), None, None
+                for i in range(iters + 1):
+                    dt, land_s, where, eq, delta, dst_visible = rtt.get(
+                        sink.pull.remote(ref.hex, n, device, i == 1), timeout=600)
+                    samples.append(nbytes / dt / 2**20)
+                    lands.append(land_s * 1e3)
+                    landed.add(where)
+                    if eq is not None:
+                        equal = eq
+                    if i > 0:
+                        for k, v in delta.items():
+                            dst_delta[k] = dst_delta.get(k, 0) + v
+                    dst_agent.call("DeleteObjects", {"object_ids": [ref.hex]}, timeout=30.0)
+                # the driver's own pulls, zone, plain, plain, zone:
+                # rdt.get_tensor (a landing("device") scope: the socket
+                # fetch opens a landing zone and the frame lands from its
+                # device copy) and a plain get (no zone: one H2D at the
+                # deserialize)
+                want = torch.arange(n, dtype=torch.float32, device=device) * 0.5
+                drv = {"zone": [], "plain": []}
+                drv_split = {"zone": [], "plain": []}
+                drv_delta = {"zone": {}, "plain": {}}
+                drv_equal = True
+                for how in ("zone", "plain", "plain", "zone"):
+                    d0 = dpl.device_stats()
+                    SPANS.clear()
+                    t0 = time.perf_counter()
+                    got = (rdt.get_tensor(ref, timeout=300) if how == "zone"
+                           else rtt.get(ref, timeout=300))
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    pull_s = time.perf_counter() - t0
+                    drv[how].append(nbytes / pull_s / 2**20)
+                    # where the pull's time went: the socket fetch (the
+                    # zone's copies run inside it) and the zone's own H2D
+                    spans = {r["name"]: r for r in SPANS.slices()}
+                    fetch = spans.get("socket_fetch")
+                    zone = spans.get("h2d_overlap_ms")
+                    drv_split[how].append((
+                        pull_s * 1e3, fetch["dur"] / 1e3 if fetch else float("nan"),
+                        zone["args"]["h2d_ms"] if zone else 0.0))
+                    d1 = dpl.device_stats()
+                    for k in d1:
+                        drv_delta[how][k] = drv_delta[how].get(k, 0) + d1[k] - d0[k]
+                    drv_equal = drv_equal and (
+                        isinstance(got, torch.Tensor) and got.device.type == device
+                        and torch.equal(got.view(torch.int32), want.view(torch.int32)))
+                    del got
+                del want, ref
+                sizes[nbytes] = {
+                    "mb_s": float(np.median(samples[1:])), "samples": samples[1:],
+                    "land_ms": float(np.median(lands[1:])),
+                    "pull_ms": float(np.median([nbytes / 2**20 / x * 1e3 for x in samples[1:]])),
+                    "seal": seal, "dst": dst_delta, "landed": sorted(landed), "equal": equal,
+                    "drv_mb_s": drv, "drv_split": drv_split, "drv_equal": drv_equal,
+                    "drv": drv_delta["zone"], "drv_plain": drv_delta["plain"],
+                    "src_plane": src_on,
+                    "visible": (src_visible, dst_visible),
+                }
+        finally:
+            set_runtime(None)
+            client.shutdown()
+    finally:
+        c.shutdown()
+        os.environ.pop("RAY_TPU_DEVICE_PLANE", None)
+    return {"sizes": sizes, "setup_s": setup_s, "total_s": time.perf_counter() - t_mode}
+
+
+def pinned_copy_rates(nbytes: int = 256 << 20, reps: int = 5):
+    """The card's own pinned D2H and H2D rates (MB/s) for ``nbytes``:
+    ``copy_`` between a pinned host buffer and a CUDA tensor, timed
+    between CUDA events, the median of ``reps``."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    rates = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        rates[name] = nbytes / (float(np.median(ms)) / 1e3) / 2**20
+    return rates
+
+
+def h2d_staging_rates(sizes=(32 << 20, 256 << 20), reps: int = 5) -> dict:
+    """MB/s of two ways to land a frame's bytes from pageable host memory
+    (a bytearray, as a socket fetch leaves them) on the card, each timed
+    on the host clock up to a synchronize, the median of ``reps``, the two
+    interleaved (ring, copy, copy, ring, ...): a plain pageable ``copy_``
+    and the device plane's land (``device_plane.h2d``, its two-slot pinned
+    ring of ``device_land_chunk_bytes`` chunks)."""
+    from ray_tpu_torch.cluster import device_plane as dpl
+
+    out = {}
+    for nbytes in sizes:
+        buf = bytearray(np.random.default_rng(nbytes).integers(
+            0, 256, nbytes, dtype=np.uint8).tobytes())
+        raw = np.frombuffer(buf, dtype=np.uint8)
+        host = dpl.cpu_bytes(raw)
+        ms = {"copy": [], "ring": []}
+
+        def run(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = host.to(DEV) if name == "copy" else dpl.h2d(raw)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            return got
+
+        want = torch.from_numpy(raw.copy()).to(DEV)
+        for i in range(reps + 1):
+            for name in (("ring", "copy") if i % 2 == 0 else ("copy", "ring")):
+                got = run(name)
+                if i == 0:  # warm-up, checked and not counted
+                    check(torch.equal(got, want), f"h2d {name} of {nbytes >> 20} MiB: "
+                                                  f"bytes differ")
+                    ms[name].clear()
+        out[nbytes] = {k: nbytes / (float(np.median(v)) / 1e3) / 2**20 for k, v in ms.items()}
+        out[nbytes]["ms"] = {k: float(np.median(v)) for k, v in ms.items()}
+        del buf, raw, host, want
+    return out
+
+
+def seal_times(sizes=(32 << 20, 256 << 20), reps: int = 3) -> dict:
+    """ms to seal a CUDA f32 block (the D2H pump's readout into the
+    frame's host buffer, ``serialization.dumps_parts``) and to copy the
+    frame into a host buffer as the arena put does (the second host
+    pass), each the median of ``reps``; with the pump's own
+    ``d2h_overlap_ms`` span of the last seal."""
+    from ray_tpu_torch.cluster import serialization as wire
+    from ray_tpu_torch.util.tracing import SPANS
+
+    out = {}
+    for nbytes in sizes:
+        t = torch.arange(nbytes // 4, dtype=torch.float32, device=DEV) * 0.5
+        arena = bytearray(nbytes + (1 << 16))
+        seal, put = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts, total = wire.dumps_parts(t)
+            t1 = time.perf_counter()
+            mv, off = memoryview(arena), 0
+            for p in parts:
+                n = p.nbytes if isinstance(p, memoryview) else len(p)
+                mv[off:off + n] = p
+                off += n
+            t2 = time.perf_counter()
+            seal.append((t1 - t0) * 1e3)
+            put.append((t2 - t1) * 1e3)
+        back = wire.loads(memoryview(arena)[:total])
+        check(torch.equal(back, t), f"seal of {nbytes >> 20} MiB: landed bytes differ")
+        spans = [r for r in SPANS.slices(cat="device_plane") if r["name"] == "d2h_overlap_ms"]
+        check(bool(spans), f"seal of {nbytes >> 20} MiB: no d2h_overlap_ms span (pump not run)")
+        out[nbytes] = {"seal_ms": float(np.median(seal[1:])), "put_ms": float(np.median(put[1:])),
+                       "pump_span_ms": spans[-1]["dur"] / 1e3,
+                       "pump_chunks": spans[-1]["args"]["chunks"]}
+        del t, arena, back, parts
+    return out
+
+
+def phase_device_xfer(device: str = "cuda"):
+    """bench.py's ``device_xfer_bench`` on the port, nothing cut: a CUDA
+    f32 block made on the source node, pulled inside a destination worker
+    that lands it on the card (``fetch_into_local_arena(land="device")``,
+    timed up to a synchronize), 32 MiB × 5 and 256 MiB × 2 with the
+    device plane on, then again with ``RAY_TPU_DEVICE_PLANE=0`` (the
+    reference's kill switch: torch's own reducer, the host bounce). Both
+    workers see the card through their GPU lease (``num_gpus=1`` on a node
+    of ``GPU: 1``, so ``CUDA_VISIBLE_DEVICES=0``). Yardstick: the card's
+    pinned D2H and H2D rates."""
+    import ray_tpu_torch as rtt
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    try:
+        modes = {"device plane": _xfer_mode(rtt, device, True)}
+        errors.check("device transfer, plane on")
+        modes["host bounce (RAY_TPU_DEVICE_PLANE=0)"] = _xfer_mode(rtt, device, False)
+        errors.check("device transfer, plane off")
+    finally:
+        errors.close()
+    on = modes["device plane"]["sizes"]
+    off = modes["host bounce (RAY_TPU_DEVICE_PLANE=0)"]["sizes"]
+    for mode, m in modes.items():
+        res = m["sizes"]
+        plane = res is on
+        print(f"device xfer {mode}: {m['total_s']:.1f} s, of it {m['setup_s']:.1f} s the "
+              f"cluster and its two actors coming up")
+        for nbytes, r in res.items():
+            mib = nbytes >> 20
+            check(r["equal"] is True, f"device xfer {mode} {mib} MiB: landed bytes differ")
+            check(r["drv_equal"], f"device xfer {mode} {mib} MiB: a driver's pull differs")
+            check(r["drv_plain"]["device_land_chunks_total"] == 0,
+                  f"device xfer {mode} {mib} MiB: the driver's plain get opened a landing zone")
+            check(r["landed"] == [f"Tensor on {device}"],
+                  f"device xfer {mode} {mib} MiB: landed as {r['landed']}")
+            check(r["src_plane"] == plane, f"device xfer {mode}: the source worker's plane is "
+                                           f"{'on' if r['src_plane'] else 'off'}")
+            if device == "cuda":
+                check(r["visible"] == ("0", "0"), f"device xfer: the workers saw "
+                                                  f"CUDA_VISIBLE_DEVICES {r['visible']}")
+            moved = {"seals": r["seal"]["device_frame_seals_total"],
+                     "device lands": r["dst"]["device_frame_lands_device_total"],
+                     "pump chunks": r["seal"]["device_pump_chunks_total"],
+                     "landing-zone chunks": r["drv"]["device_land_chunks_total"]}
+            for name, v in moved.items():
+                if plane and (device == "cuda" or name in ("seals", "device lands")):
+                    check(v > 0, f"device xfer {mode} {mib} MiB: {name} stayed flat")
+                if not plane:
+                    check(v == 0, f"device xfer {mode} {mib} MiB: {name} moved ({v}) "
+                                  f"with the plane off")
+            print(f"device xfer [{card_line()}] {mode}, {mib} MiB: "
+                  f"{r['mb_s']:.1f} MB/s median of {len(r['samples'])} pulls "
+                  f"({', '.join(f'{s:.1f}' for s in r['samples'])}); a pull {r['pull_ms']:.1f} "
+                  f"ms, of it the landing alone (a re-read from the local arena) "
+                  f"{r['land_ms']:.1f} ms; landed "
+                  f"{', '.join(r['landed'])}, bytes equal {r['equal']}; counter deltas "
+                  f"{', '.join(f'{k} {v}' for k, v in moved.items())}, "
+                  f"seal zero-copy {r['seal']['device_frame_zero_copy_total']}; driver "
+                  f"rdt.get_tensor (landing zone) "
+                  f"{', '.join(f'{x:.1f}' for x in r['drv_mb_s']['zone'])} MB/s, plain get "
+                  f"(no zone) {', '.join(f'{x:.1f}' for x in r['drv_mb_s']['plain'])} MB/s, "
+                  f"bytes equal {r['drv_equal']}; a driver pull's ms, of it the socket fetch, of "
+                  f"that the zone's H2D: zone "
+                  f"{'; '.join('%.1f, %.1f, %.1f' % x for x in r['drv_split']['zone'])}; plain "
+                  f"{'; '.join('%.1f, %.1f, %.1f' % x for x in r['drv_split']['plain'])}")
+    for nbytes in on:
+        print(f"device xfer [{card_line()}] {nbytes >> 20} MiB: device plane / host bounce "
+              f"{on[nbytes]['mb_s'] / off[nbytes]['mb_s']:.2f}x")
+    if device == "cuda":
+        rates = pinned_copy_rates()
+        print(f"device xfer [{card_line()}] yardstick: pinned copy_ of 256 MiB, D2H "
+              f"{rates['d2h']:.1f} MB/s, H2D {rates['h2d']:.1f} MB/s")
+        for nbytes, r in h2d_staging_rates().items():
+            print(f"device xfer [{card_line()}] land H2D from pageable memory, "
+                  f"{nbytes >> 20} MiB: plain pageable copy_ {r['copy']:.1f} MB/s "
+                  f"({r['ms']['copy']:.3f} ms), the plane's two-slot pinned ring "
+                  f"(device_plane.h2d) {r['ring']:.1f} MB/s ({r['ms']['ring']:.3f} ms)")
+        for nbytes, r in seal_times().items():
+            print(f"device xfer [{card_line()}] seal of a CUDA f32 {nbytes >> 20} MiB block: "
+                  f"{r['seal_ms']:.3f} ms (the pump's d2h_overlap_ms span {r['pump_span_ms']:.3f} "
+                  f"ms, {r['pump_chunks']} chunks), then the frame's copy into a host buffer as "
+                  f"the arena put does {r['put_ms']:.3f} ms")
+    print(f"device xfer phase: {time.perf_counter() - t0:.1f} s")
+
+
 PR_SET_CHILD_SUBREAPER = 36  # linux/prctl.h
 
 
@@ -2646,6 +3428,9 @@ def main() -> None:
     phase_elasticity()
     phase_autoscaler()
     phase_standby()
+    phase_dashboard()
+    phase_dag()
+    phase_device_xfer()
     phase_processes()
     kernels = [
         dict(name="paged_attention_decode", route="cuda",

@@ -192,9 +192,7 @@ def main() -> int:
     st.add_argument("--address", default=None)
     st.add_argument("--host", default="127.0.0.1")
     st.add_argument("--port", type=int, default=6380)
-    # no dashboard until cluster/dashboard.py is ported (ROADMAP Queue A
-    # item 3): the reference defaults to port 8265
-    st.add_argument("--dashboard-port", type=int, default=None)
+    st.add_argument("--dashboard-port", type=int, default=8265)
     st.add_argument("--no-dashboard", action="store_true")
     st.add_argument(
         "--device-scheduler",

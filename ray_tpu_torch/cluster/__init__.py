@@ -6,9 +6,8 @@ scheduler programs; workers only need rpc + common).
 
 Port of ``ray_tpu/cluster/``: the head (whose rounds run on the scheduler
 device, ``cuda`` unless ``RAY_TPU_SCHED_PLATFORM=cpu``), the warm standby,
-agents, workers, zygote, client, wire format, RPC, transport, object plane,
-WAL and jobs. Not ported yet (ROADMAP Queue A): the dashboard and the device
-plane's CUDA frames.
+agents, workers, zygote, client, wire format, RPC, transport, object plane
+with its device frames for CUDA tensors, WAL, jobs and the dashboard.
 """
 from typing import Any
 

@@ -10,8 +10,7 @@ object pulls from remote nodes (pull_manager.h). It heartbeats resource
 snapshots to the head (raylet_report_resources_period_milliseconds=100).
 
 Port of ``ray_tpu/cluster/agent.py``, copied with its imports rewritten.
-The reference's sweep of orphaned ``dag/`` ring files is left out until
-``dag/`` is ported (ROADMAP Queue A item 5). The agent never touches CUDA:
+The agent never touches CUDA:
 a GPU lease exports ``CUDA_VISIBLE_DEVICES`` to its worker
 (``scheduler/instances.py``), and only the worker's task body uses the
 card.
@@ -276,8 +275,16 @@ class NodeAgent:
                 logger.info("swept %d orphaned store files", len(swept))
         except Exception:  # noqa: BLE001 - hygiene, never fatal
             logger.debug("orphan store sweep failed", exc_info=True)
-        # the reference also sweeps orphaned DAG/pipeline ring files here;
-        # the port has no rings until dag/ is ported (ROADMAP Queue A item 5)
+        try:
+            # same hygiene for DAG/pipeline ring files: a SIGKILLed
+            # producer or consumer never reaches its unlink
+            from ray_tpu_torch.dag.channel import sweep_orphan_rings
+
+            swept = sweep_orphan_rings()
+            if swept:
+                logger.info("swept %d orphaned ring files", len(swept))
+        except Exception:  # noqa: BLE001 - hygiene, never fatal
+            logger.debug("orphan ring sweep failed", exc_info=True)
         try:
             # and for data-plane endpoint sidecars (transport.py): a
             # SIGKILLed agent never unlinks its own .ep file

@@ -28,8 +28,7 @@ remains per item is the user-visible serialize; everything else is
 per-window.
 
 Port of ``ray_tpu/cluster/event_loop.py``, copied with its imports
-rewritten. The ``dag/`` ring and pipeline statistics are left out until
-``dag/`` is ported (ROADMAP Queue A item 5).
+rewritten.
 """
 from __future__ import annotations
 
@@ -74,8 +73,25 @@ def publish_dark_plane() -> None:
         dark.publish()
     except Exception:  # noqa: BLE001 - counters are optional
         pass
-    # the reference also publishes its dag/ rings' fill here; the port has
-    # no rings until dag/ is ported (ROADMAP Queue A item 5)
+    try:
+        from ray_tpu_torch.dag.channel import ring_stats
+        from ray_tpu_torch.util.metrics import sync_gauge
+
+        fills = ring_stats()
+        if fills:
+            sync_gauge(
+                "pipeline_ring_used_bytes",
+                float(sum(r["used"] for r in fills)),
+                "Bytes currently occupying this process's open shm rings.",
+            )
+            sync_gauge(
+                "pipeline_ring_fill_max",
+                float(max(r["fill"] for r in fills)),
+                "Highest fill fraction across this process's open shm "
+                "rings at the last observability tick.",
+            )
+    except Exception:  # noqa: BLE001 - toolchain missing
+        pass
 
 
 def hotpath_state() -> dict:
@@ -98,10 +114,18 @@ def hotpath_state() -> dict:
         state["dark_counters"] = dark.publish()
     except Exception:  # noqa: BLE001 - counters are optional
         state["dark_counters"] = {}
-    # no dag/ rings or pipelines until dag/ is ported (ROADMAP Queue A
-    # item 5): the keys stay, empty, for the readers of this block
-    state["rings"] = []
-    state["pipelines"] = []
+    try:
+        from ray_tpu_torch.dag.channel import ring_stats
+
+        state["rings"] = ring_stats()
+    except Exception:  # noqa: BLE001 - toolchain missing
+        state["rings"] = []
+    try:
+        from ray_tpu_torch.dag.pipeline import pipeline_stats
+
+        state["pipelines"] = pipeline_stats()
+    except Exception:  # noqa: BLE001
+        state["pipelines"] = []
     hist = _registry.get("dispatch_overhead_us")
     if hist is not None:
         state["dispatch_overhead_us"] = {

@@ -22,9 +22,8 @@ model. The golden model runs only when asked for
 reference's two host paths in the unpark (a failed ring unpark retried
 through the host, a failed slot estimate redone by a host scan) are gone:
 a device failure there is a failed round, logged as "scheduler round
-failed", and the parked work stays parked. ``dashboard_port`` raises until
-``cluster/dashboard.py`` is ported (ROADMAP Queue A item 3), and so does
-the serve fleet's budget split until ``serve/`` is (item 10).
+failed", and the parked work stays parked. The serve fleet's budget split
+raises until ``serve/`` is ported (ROADMAP Queue A item 10).
 """
 from __future__ import annotations
 
@@ -75,12 +74,6 @@ from .rpc import RpcClient, RpcError, RpcNotLeaderError, RpcServer
 from .shards import ShardedTable
 
 logger = logging.getLogger("ray_tpu_torch.cluster.head")
-
-DASHBOARD_NOT_PORTED = (
-    "the head's dashboard needs ray_tpu_torch.cluster.dashboard, which is "
-    "not ported yet (ROADMAP Queue A item 3); pass dashboard_port=None"
-)
-
 
 def _trace_args(spec) -> dict:
     from ray_tpu_torch.util.tracing import event_args
@@ -279,8 +272,6 @@ class HeadServer:
         self.vocab = ResourceVocab()
         self.view = ClusterView(self.vocab)
         self.hybrid_config = HybridConfig()
-        if dashboard_port is not None:
-            raise NotImplementedError(DASHBOARD_NOT_PORTED)
         if use_device_scheduler is None:
             use_device_scheduler = device_scheduler_default()
         self.use_device_scheduler = use_device_scheduler
@@ -648,6 +639,10 @@ class HeadServer:
         for job in getattr(self, "_recovered_jobs", []):
             self.jobs.restore(job)
         self.dashboard = None
+        if dashboard_port is not None:
+            from .dashboard import Dashboard
+
+            self.dashboard = Dashboard(self, host=host, port=dashboard_port)
 
         # unified elasticity plane: constructed always (so a
         # provider can attach and QueryState can introspect), ticking
@@ -6235,9 +6230,7 @@ def main() -> None:  # pragma: no cover - exercised via subprocess in tests
     parser = argparse.ArgumentParser(description="ray_tpu_torch head server")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6380)
-    # no dashboard until cluster/dashboard.py is ported (ROADMAP Queue A
-    # item 3): the reference defaults to port 8265
-    parser.add_argument("--dashboard-port", type=int, default=None)
+    parser.add_argument("--dashboard-port", type=int, default=8265)
     parser.add_argument("--no-dashboard", action="store_true")
     parser.add_argument(
         "--device-scheduler",

@@ -198,10 +198,12 @@ def _pickle_oob(obj: Any) -> Tuple[bytes, List[memoryview]]:
         buffers.append(raw)
         return False  # carried out-of-band
 
-    # device-aware front half: in the reference, sealable device leaves
-    # reduce to device frames riding _cb like any other out-of-band
-    # buffer; the port seals none yet (device_plane.py), so this is
-    # cloudpickle with the same buffer callback.
+    # device-aware front half: sealable tensor leaves reduce to device
+    # frames (a uint8 view of the tensor's bytes, a CUDA one read out
+    # through the D2H pump) instead of torch's host-copy reducer; the
+    # PickleBuffers flow through _cb like any other out-of-band buffer,
+    # so device frames ride RTP5 unchanged and every transport below this
+    # line (arena, socket, chunked RPC, spill) works untouched.
     pkl = device_plane.dumps_oob(obj, protocol=5, buffer_callback=_cb)
     return pkl, buffers
 
@@ -331,12 +333,7 @@ def loads(data) -> Any:
     if mv.nbytes < 4 or bytes(mv[:4]) != MAGIC:
         return pickle.loads(mv)
     pkl, bufs = _parse_frame(mv)
-    try:
-        return pickle.loads(pkl, buffers=bufs)
-    finally:
-        # the reference evicts landed device frames' keepalive here; a
-        # no-op in the port until device frames exist (device_plane.py)
-        device_plane.flush_landing_keepalive()
+    return pickle.loads(pkl, buffers=bufs)
 
 
 def frames_total(parts: Sequence[Any]) -> int:

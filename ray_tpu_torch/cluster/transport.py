@@ -41,7 +41,7 @@ import logging
 import struct
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.native.net import (
     NetClosedError,
@@ -766,16 +766,23 @@ def _fetch(
     return total
 
 
-def _maybe_landing_zone(land: Optional[str], dest: memoryview):
-    """A DeviceLandingZone over ``dest`` when ``land='device'`` asks for
-    H2D/recv overlap AND the backend has a real H2D hop to hide (see
-    device_plane.landing_zone_worthwhile); None otherwise."""
+def _wants_landing_zone(land: Optional[str]) -> bool:
+    """``land='device'`` asks for H2D/recv overlap AND the backend has a
+    real H2D hop to hide (see device_plane.landing_zone_worthwhile)."""
     if land != "device":
+        return False
+    from ray_tpu_torch.cluster import device_plane
+
+    return device_plane.landing_zone_worthwhile()
+
+
+def _maybe_landing_zone(land: Optional[str], dest: memoryview):
+    """A DeviceLandingZone over ``dest`` when :func:`_wants_landing_zone`;
+    None otherwise."""
+    if not _wants_landing_zone(land):
         return None
     from ray_tpu_torch.cluster import device_plane
 
-    if not device_plane.landing_zone_worthwhile():
-        return None
     return device_plane.DeviceLandingZone(dest)
 
 
@@ -785,13 +792,15 @@ def fetch_bytes(
     purpose: str = "task_args",
     deadline: Optional[float] = None,
     land: Optional[str] = None,
-) -> bytearray:
+) -> Any:
     """Pull one object over the link into host memory (driver-side /
-    arena-less callers). ``land='device'`` additionally streams landed
-    stripes to the device in flight (device landing zone) so the
-    deserialize-time ``device_put`` of device frames reads warm pages —
-    a no-op on host-aliasing backends where no H2D hop exists."""
-    out: List[bytearray] = []
+    arena-less callers): a ``bytearray``, or on a card with a landing
+    zone a pinned ``uint8`` ndarray. ``land='device'`` additionally
+    streams landed stripes to the device in flight (device landing zone);
+    under an explicit ``landing("device")`` scope the device frames of
+    the deserialize that follows then land from that copy — a no-op
+    without a CUDA card, where no H2D hop exists."""
+    out: List[object] = []
     gated = [0]
     zone: List[object] = [None]
 
@@ -802,11 +811,23 @@ def fetch_bytes(
             if deadline is None
             else max(0.05, deadline - time.monotonic()),
         )
-        buf = bytearray(total)
+        buf, pinned = None, None
+        if _wants_landing_zone(land):
+            from ray_tpu_torch.cluster import device_plane
+
+            if device_plane.on_card():
+                # a zone on the card: the stripes land in pinned memory,
+                # so its copies are DMAs that take no CPU from the recv
+                buf, pinned = device_plane.pinned_landing_buffer(total)
+            else:
+                buf = bytearray(total)
+            zone[0] = device_plane.DeviceLandingZone(
+                memoryview(buf), pinned=pinned
+            )
+        else:
+            buf = bytearray(total)
         out.append(buf)
-        mv = memoryview(buf)
-        zone[0] = _maybe_landing_zone(land, mv)
-        return mv
+        return memoryview(buf)
 
     def on_stripe(off: int, n: int) -> None:
         z = zone[0]
@@ -817,6 +838,11 @@ def fetch_bytes(
         _fetch(link, object_id, purpose, alloc, deadline, on_stripe)
         if zone[0] is not None:
             zone[0].finish()
+            from ray_tpu_torch.cluster import device_plane
+
+            # the deserialize that follows lands its frames from the
+            # zone's device copy, not with a second H2D from ``out[0]``
+            device_plane.keep_landed(out[0], zone[0].device_buffer)
     except BaseException:
         if zone[0] is not None:
             zone[0].abort()
@@ -844,8 +870,10 @@ def fetch_to_store(
     joined bytes take ``put_bytes`` (which owns the spill fallback).
 
     ``land='device'`` wraps the staged entry in a device landing zone:
-    completed stripes of the contiguous prefix are ``device_put`` in
-    flight so the consumer's deserialize-time H2D overlaps the recv. An
+    completed stripes of the contiguous prefix are copied to the card in
+    flight. The object is read later from the arena, so that copy is
+    dropped at the end (the runtime's own pulls never ask for it; the
+    socket get of ``fetch_bytes`` is where a zone's copy is used). An
     abort frees BOTH sides — partial device buffers (zone.abort) and
     staged arena pages (abort_put) — and per-stripe resume is
     unaffected because the zone only ever consumes fully-landed

@@ -15,8 +15,7 @@ code triggers them), so a pool of workers forks in well under a second.
 Port of ``ray_tpu/cluster/worker.py``, copied with its imports rewritten.
 The reference's jax platform pin at startup is gone: torch has nothing
 to pin, and a worker touches CUDA only inside a task body (never before
-the zygote's fork). Compiled-DAG and pipeline stages raise
-``NotImplementedError`` until ``dag/`` is ported (ROADMAP Queue A item 5).
+the zygote's fork).
 """
 from __future__ import annotations
 
@@ -32,10 +31,6 @@ import traceback
 from collections import deque
 
 _STREAM_END = object()  # generator-exhausted sentinel (values can be None)
-DAG_NOT_PORTED = (
-    "compiled-DAG and pipeline stages need ray_tpu_torch.dag, which is not "
-    "ported yet (ROADMAP Queue A item 5)"
-)
 from typing import Any, Dict, List, Optional
 
 import cloudpickle
@@ -1599,7 +1594,93 @@ class Worker:
     # execution loops reading/writing channels instead of receiving tasks)
     # ------------------------------------------------------------------
     def _h_dag_install(self, req: dict) -> dict:
-        raise NotImplementedError(DAG_NOT_PORTED)
+        from ray_tpu_torch.dag.channel import ShmChannel
+        from ray_tpu_torch.dag.compiled import run_dag_stage
+
+        actor_id = req["actor_id"]
+        dag_id = req["dag_id"]
+        instance = self._actors[actor_id]
+        entry = self._actor_loops.get(actor_id)
+        dag_lock = self._dag_actor_locks.setdefault(actor_id, threading.Lock())
+        state = self._dag_programs.setdefault(
+            dag_id, {"stop": threading.Event(), "threads": []}
+        )
+        for prog in req["programs"]:
+            prog_channels: List[Any] = []
+            in_channels: Dict[tuple, Any] = {}
+            consts_args: List[Any] = []
+            for i, (kind, v) in enumerate(prog["args"]):
+                if kind == "chan":
+                    ch = ShmChannel(v, capacity=prog["capacity"])
+                    in_channels[("arg", i)] = ch
+                    prog_channels.append(ch)
+                    consts_args.append(None)
+                else:
+                    consts_args.append(cloudpickle.loads(v))
+            consts_kwargs: Dict[str, Any] = {}
+            for k, (kind, v) in prog["kwargs"].items():
+                if kind == "chan":
+                    ch = ShmChannel(v, capacity=prog["capacity"])
+                    in_channels[("kw", k)] = ch
+                    prog_channels.append(ch)
+                    consts_kwargs[k] = None
+                else:
+                    consts_kwargs[k] = cloudpickle.loads(v)
+            if prog.get("tick_path"):
+                ch = ShmChannel(prog["tick_path"], capacity=prog["capacity"])
+                in_channels[("tick",)] = ch
+                prog_channels.append(ch)
+            out_channels = []
+            for p in prog["out_paths"]:
+                ch = ShmChannel(p, capacity=prog["capacity"])
+                out_channels.append(ch)
+                prog_channels.append(ch)
+            method = prog["method"]
+            fn = getattr(instance, method)
+            if entry is not None:
+                import asyncio
+                import inspect
+
+                loop, _sems = entry
+
+                def target(*a, _fn=fn, **kw):
+                    from ray_tpu_torch.core.object_store import should_await
+
+                    with dag_lock:
+                        out = _fn(*a, **kw)
+                    if should_await(out):
+                        return asyncio.run_coroutine_threadsafe(
+                            _awrap(out), loop
+                        ).result()
+                    return out
+
+                async def _awrap(aw):
+                    # run_coroutine_threadsafe needs a coroutine, not a
+                    # bare awaitable
+                    return await aw
+
+            else:
+
+                def target(*a, _fn=fn, **kw):
+                    with dag_lock:
+                        return _fn(*a, **kw)
+            t = threading.Thread(
+                target=run_dag_stage,
+                args=(
+                    target,
+                    in_channels,
+                    out_channels,
+                    consts_args,
+                    consts_kwargs,
+                    state["stop"],
+                    f"{actor_id[:8]}.{method}",
+                ),
+                name=f"dag-{dag_id[:8]}-{method}",
+                daemon=True,
+            )
+            state["threads"].append((t, prog_channels))
+            t.start()
+        return {"status": "ok"}
 
     def _h_dag_teardown(self, req: dict) -> dict:
         state = self._dag_programs.pop(req["dag_id"], None)
@@ -1633,7 +1714,71 @@ class Worker:
         cloudpickle blobs ONCE at install; method stages bind the hosted
         actor instance under the per-actor DAG lock (compiled-DAG calls,
         pipeline calls, and normal pushed methods stay serialized)."""
-        raise NotImplementedError(DAG_NOT_PORTED)
+        from ray_tpu_torch.dag.channel import ShmChannel
+        from ray_tpu_torch.dag.pipeline import run_pipeline_stage
+
+        actor_id = req["actor_id"]
+        pipe_id = req["pipe_id"]
+        instance = self._actors[actor_id]
+        entry = self._actor_loops.get(actor_id)
+        dag_lock = self._dag_actor_locks.setdefault(actor_id, threading.Lock())
+        state = self._pipelines.setdefault(
+            pipe_id, {"stop": threading.Event(), "threads": []}
+        )
+        for prog in req["programs"]:
+            in_ch = ShmChannel(prog["in_path"], capacity=prog["capacity"])
+            out_ch = ShmChannel(prog["out_path"], capacity=prog["capacity"])
+            if prog.get("fn_blob") is not None:
+                fn = cloudpickle.loads(prog["fn_blob"])
+
+                def target(x, _fn=fn):
+                    return _fn(x)
+
+                name = getattr(fn, "__name__", "fn")
+            else:
+                method = prog["method"]
+                bound = getattr(instance, method)
+                if entry is not None:
+                    import asyncio
+
+                    loop, _sems = entry
+
+                    async def _awrap(aw):
+                        return await aw
+
+                    def target(x, _fn=bound, _loop=loop):
+                        from ray_tpu_torch.core.object_store import should_await
+
+                        with dag_lock:
+                            out = _fn(x)
+                        if should_await(out):
+                            return asyncio.run_coroutine_threadsafe(
+                                _awrap(out), _loop
+                            ).result()
+                        return out
+
+                else:
+
+                    def target(x, _fn=bound):
+                        with dag_lock:
+                            return _fn(x)
+
+                name = method
+            t = threading.Thread(
+                target=run_pipeline_stage,
+                args=(
+                    target,
+                    in_ch,
+                    out_ch,
+                    state["stop"],
+                    f"{actor_id[:8]}.{name}[{prog['stage']}]",
+                ),
+                name=f"pipe-{pipe_id[:8]}-s{prog['stage']}",
+                daemon=True,
+            )
+            state["threads"].append((t, [in_ch, out_ch]))
+            t.start()
+        return {"status": "ok"}
 
     def _h_pipeline_teardown(self, req: dict) -> dict:
         state = self._pipelines.pop(req["pipe_id"], None)
@@ -1904,9 +2049,12 @@ def fetch_into_local_arena(
     the socket plane / chunked fallback like any located fetch).
     Returns the deserialized value. Raises when not inside a worker.
 
-    ``land`` picks the device-frame landing mode for the deserialize
-    (``"device"`` or ``"host"``). The port has no device frames yet
-    (``device_plane.py``): both land the same host values."""
+    ``land`` picks the device-frame landing mode for the deserialize:
+    ``"device"`` (default) lands a frame sealed from a CUDA tensor back on
+    this process's current CUDA device, one H2D copy from the arena view
+    (a frame sealed from a CPU tensor lands as a CPU tensor); ``"host"``
+    returns read-only host views (callers that only re-export, e.g. buddy
+    replication without consumption)."""
     w = _CURRENT_WORKER
     if w is None:
         raise RuntimeError("fetch_into_local_arena: not inside a worker")

@@ -623,28 +623,28 @@ define(
 define(
     "device_plane",
     True,
-    "Device-direct data plane: jax.Array leaves seal as device frames "
-    "(dlpack/__array__ export riding RTP5 out-of-band buffers — on the "
-    "CPU backend the export aliases the device buffer, zero-copy) and "
-    "land via device_put straight from the arriving arena view / socket "
-    "landing zone, skipping the host-bounce copy on both sides. Off: "
-    "jax leaves ride cloudpickle's stock reducer (full host copy in the "
-    "pickle pass) and land host-side — the pre-device-plane behaviour. "
-    "Read live; sealed device frames remain loadable either way.",
+    "Device-direct data plane: torch.Tensor leaves seal as device frames "
+    "(a uint8 view of the tensor's bytes riding RTP5 out-of-band buffers "
+    "— zero-copy for a contiguous CPU tensor, one chunked D2H for a CUDA "
+    "one) and land on the device they were sealed from, one H2D straight "
+    "from the arriving arena view / socket landing zone. Off: tensors "
+    "ride torch's own reducer (full host copy in the pickle pass) and "
+    "frames land host-side — the pre-device-plane behaviour. Read live; "
+    "sealed device frames remain loadable either way.",
 )
 define(
     "device_pump_min_bytes",
     8 << 20,
-    "Device arrays at or above this size on a non-host-aliasing backend "
-    "read out through the chunked copy_to_host_async D2H pump "
-    "(overlapping readout with the arena gather / socket send) instead "
+    "CUDA tensors at or above this size read out through the chunked "
+    "D2H pump (pinned chunks on a side stream) "
+    "(overlapping readout with the seal's gather-copy) instead "
     "of one monolithic export.",
 )
 define(
     "device_pump_chunk_bytes",
     4 << 20,
     "Chunk size of the D2H pump (device_pump_min_bytes); each chunk is "
-    "one copy_to_host_async window.",
+    "one async D2H copy into a pinned buffer.",
 )
 define(
     "device_pump_depth",
@@ -657,12 +657,13 @@ define(
     4 << 20,
     "Device landing zone H2D chunk size: during a striped socket fetch "
     "with land=device, each completed chunk of the contiguous prefix is "
-    "device_put in flight, overlapping H2D with the remaining recv.",
+    "copied to the card in flight, overlapping H2D with the remaining "
+    "recv; also the chunk of the pinned ring that stages a frame's H2D.",
 )
 define(
     "device_land_always",
     False,
-    "Force the device landing zone even on host-aliasing backends (CPU) "
+    "Force the device landing zone even without a CUDA card "
     "where the overlap hides nothing — test / A-B hook; production "
     "leaves this off and the zone activates only when a real H2D hop "
     "exists.",

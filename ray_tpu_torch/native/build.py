@@ -4,9 +4,8 @@ consumed via ctypes).
 Port of ``ray_tpu/native/build.py``. The port compiles its own copy of the
 C++ sources (``native/*.cc`` here) with the system ``g++`` at first use,
 into the git-ignored ``native/_build/``: the shared-memory object store,
-the node resource ledger, the wire framing and the socket data plane. The
-reference's ``ring.cc`` serves only ``dag/`` and waits for it (ROADMAP
-Queue A item 5).
+the node resource ledger, the wire framing, the socket data plane and the
+SPSC byte ring under ``dag/``'s channels.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ SOURCES = {
     "ledger": "ledger.cc",
     "wire": "wire.cc",
     "net": "net.cc",
+    "ring": "ring.cc",
 }
 
 

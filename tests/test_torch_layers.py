@@ -101,6 +101,8 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "import ray_tpu_torch.cluster.worker, ray_tpu_torch.cluster.client\n"
         "import ray_tpu_torch.autoscaler, ray_tpu_torch.scheduler.sim\n"
         "import ray_tpu_torch.cluster.standby, ray_tpu_torch.autoscaler.gce\n"
+        "import ray_tpu_torch.dag, ray_tpu_torch.rdt, ray_tpu_torch.experimental\n"
+        "import ray_tpu_torch.util.state, ray_tpu_torch.cluster.dashboard\n"
         "import torch\n"
         "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
         "from ray_tpu_torch.models import transformer as tfm\n"
@@ -116,6 +118,9 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "f = ray_tpu_torch.remote(lambda x: x + 1)\n"
         "assert ray_tpu_torch.get(f.remote(1), timeout=60) == 2\n"
         "ray_tpu_torch.shutdown()\n"
+        "from ray_tpu_torch.cluster.serialization import dumps_parts, join_parts, loads\n"
+        "t = torch.arange(6.0)\n"
+        "assert torch.equal(loads(memoryview(join_parts(dumps_parts(t)[0]))), t)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(','.join(bad))\n"

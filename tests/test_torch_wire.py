@@ -8,8 +8,8 @@ error containment, and the hot-path observability surfaces.
 
 Mirror of the framing, serialization and ``FusedEventLoop`` cases of
 ``tests/test_hotpath.py`` on the port (``ray_tpu_torch``), the same
-assertions. Its ring and compiled-pipeline cases wait for ``dag/``
-(ROADMAP Queue A item 5).
+assertions. Its ring and compiled-pipeline cases are in
+``tests/test_torch_ring_channels.py`` and ``tests/test_torch_pipeline.py``.
 """
 import struct
 import threading
