@@ -37,6 +37,29 @@ passes or exits non-zero:
    of ``make_train_step`` on one batch (flash launches counted from zero):
    the loss must be finite and fall; then checks an f32 ``ModelConfig()``
    loss and every gradient on the card against the CPU's plain path;
+5b. head_dim above 256: ``flash_attention`` at 320 (padded to 512) and the
+   grouped kernels at 512, forward, dQ and dK/dV, and the paged kernel at
+   320 and 512 (one slot split over blocks, two launches bit-equal), f32
+   and bf16, each against its plain version; each wide kernel timed at one
+   bf16 shape (bh=16, T=1024, D=512 causal; paged at the engine's decode
+   shapes with D=512) beside its plain version, SDPA where it takes the
+   inputs, and its bound. Then ``LLMEngine(ModelConfig())``: 8 prompts x 64
+   greedy tokens and one stream at temperature 0.8 with top_k 40, decode
+   tokens/s; f32 greedy streams card == CPU (TF32 off);
+   ``ModelConfig(n_experts=4)``: the engine generates, ``forward`` at B=4,
+   T=2048 launches the flash kernel (counted from zero), three MoE train
+   steps launch the flash forward and backward, an f32 MoE forward card vs
+   CPU within 1e-3. Then the continuous engine in f32 with the device plane
+   on: ``prefill_extract`` hands CUDA tensors, sealed as device frames into
+   a ``NativeObjectStore`` and landed back on the card equal;
+   ``adopt_pages`` decodes them token-exact with a monolithic engine, with
+   no prefill and the paged kernel launched; engine A publishes a prefix
+   that engine B hits with no prefill and an equal stream (and a longer
+   prompt's stream equals a full prefill's); ``swap_params`` finishes the
+   in-flight stream on the old weights, admits the queued one on the new,
+   retags the cache so the old prefix misses, and at its drain deadline
+   evicts a wedged slot and sheds the next submit (``Overloaded``); no
+   engine leaks a page;
 6. runs the scheduler slice on the card against the port's CPU path, every
    output bit-identical: bench.py's kernel tier (1,024 nodes, 100,000
    requests) through ``hybrid_schedule_shapes``, with capacity recomputed on
@@ -153,7 +176,7 @@ if not torch.cuda.is_available():
 
 from ray_tpu_torch import _cuda  # noqa: E402
 from ray_tpu_torch.llm.continuous import ContinuousBatchingEngine  # noqa: E402
-from ray_tpu_torch.llm.engine import GenerationConfig  # noqa: E402
+from ray_tpu_torch.llm.engine import GenerationConfig, LLMEngine  # noqa: E402
 from ray_tpu_torch.models import transformer as tfm  # noqa: E402
 from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
@@ -447,15 +470,15 @@ def wrapper_bwd_case(name, b, t, h, hkv, d, causal, dtype, seed):
     check(launched == (1, 1), f"flash bwd {name}: launches {launched}")
 
 
-def sdpa_backward_ms(qg, kg, vg, do):
+def sdpa_backward_ms(qg, kg, vg, do, backends=("FLASH_ATTENTION", "CUDNN_ATTENTION")):
     """The yardstick: SDPA's backward on the grouped layout (dq, dk and dv in
-    one call, from a saved output), causal, timed under each backend that
-    takes these inputs, the forward built inside the same context. Returns
-    {backend: ms}."""
+    one call, from a saved output), causal, timed under each of ``backends``
+    (SDPBackend names) that takes these inputs, the forward built inside the
+    same context. Returns {backend: ms}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     q4, k4, v4 = (x[None].detach().requires_grad_() for x in (qg, kg, vg))
     times = {}
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+    for backend in (getattr(SDPBackend, name) for name in backends):
         try:
             with sdpa_kernel(backend):
                 out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
@@ -467,9 +490,10 @@ def sdpa_backward_ms(qg, kg, vg, do):
     return times
 
 
-def bwd_timing(bh, t, d, seed):
+def bwd_timing(bh, t, d, seed, sdpa_backends=("FLASH_ATTENTION", "CUDNN_ATTENTION")):
     """dQ and dK/dV kernels at one causal bf16 shape: error against the
-    plain versions, kernel, plain and SDPA-backward ms, and each bound."""
+    plain versions, kernel, plain and SDPA-backward ms (the fastest of
+    ``sdpa_backends``), and each bound."""
     dtype = torch.bfloat16
     args = grouped_bwd_inputs(bh, t, d, True, dtype, seed)
     qg, kg, vg, do, lse, delta = args
@@ -480,7 +504,7 @@ def bwd_timing(bh, t, d, seed):
     check(max(errs) <= BWD_TOL[dtype], f"flash bwd bh={bh} T={t} D={d}: rel err {errs}")
     e_dq = max_err(dq, want[0])
     e_dkv = max(max_err(dk, want[1]), max_err(dv, want[2]))
-    sdpa_by = sdpa_backward_ms(qg, kg, vg, do)
+    sdpa_by = sdpa_backward_ms(qg, kg, vg, do, sdpa_backends)
     backend = min(sdpa_by, key=sdpa_by.get) if sdpa_by else None
     sdpa = sdpa_by[backend] if backend else None
     print(f"sdpa backward bh={bh} T={t} D={d} causal: "
@@ -917,6 +941,321 @@ def phase_train_f32() -> None:
           f"{errs[worst]:.2e} ({names[worst]}; tol 1e-4) over the loss and "
           f"{len(errs) - 1} gradient leaves")
     check(max(errs) <= 1e-4, f"f32 train step card vs CPU: {errs}")
+
+
+# ---------------------------------------------------------------------------
+# 5b. head_dim above 256, the dense-cache engine, MoE, disaggregated serving
+# ---------------------------------------------------------------------------
+def wide_fwd_timing(bh, t, d, seed):
+    """The wide flash forward at one causal bf16 shape: error against the
+    plain version, kernel, plain and SDPA ms, and the bound."""
+    g = gen(seed)
+    qg, kg, vg = (torch.randn(bh, t, d, generator=g, device=DEV).to(torch.bfloat16)
+                  for _ in range(3))
+    out, lse = flash_attention_forward(qg, kg, vg, True)
+    ref_out, ref_lse = flash_attention_reference(qg, kg, vg, True)
+    e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+    check(e_out <= 3e-2 and e_lse <= 1e-3, f"wide forward D={d}: {e_out}, {e_lse}")
+    del ref_out, ref_lse
+    ms = time_ms(lambda: flash_attention_forward(qg, kg, vg, True), iters=10)
+    plain = time_ms(lambda: flash_attention_reference(qg, kg, vg, True), iters=3, warmup=1)
+    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qg[None], kg[None], vg[None], is_causal=True), iters=10)
+    flops = 4.0 * d * bh * t * (t + 1) // 2
+    bnd, by = bound_ms(nbytes(qg, kg, vg, out, lse), flops, torch.bfloat16)
+    print(f"flash wide bf16 bh={bh} T={t} D={d} causal: out err {e_out:.3e} lse err "
+          f"{e_lse:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {sdpa:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by})")
+    return dict(shape=f"bh={bh} T={t} D={d} bf16 causal", max_abs_err=e_out, ms=ms,
+                plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=sdpa)
+
+
+def phase_wide_heads():
+    """head_dim above 256: flash_attention pads 320 to 512 and runs the wide
+    kernels (head_dim walked in 256-column chunks), forward and backward;
+    the paged kernel's wide instance at 320 and 512; f32 and bf16, each
+    against its plain version; then each timed at one bf16 shape."""
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        atol = 1e-4 if dtype == torch.float32 else 3e-2
+        flash_case(f"{tag} GQA hd320 ragged causal T=100", 1, 100, 4, 2, 320, True, dtype,
+                   atol, 51)
+        flash_case(f"{tag} hd512 non-causal", 1, 192, 4, 4, 512, False, dtype, atol, 52)
+        bwd_kernel_case(4, 192, 192, 512, True, dtype, 53)
+        bwd_kernel_case(4, 128, 320, 512, False, dtype, 54)
+        wrapper_bwd_case(f"{tag} GQA 4->2 hd320 ragged causal T=100", 1, 100, 4, 2, 320,
+                         True, dtype, 55)
+        wrapper_bwd_case(f"{tag} hd512", 1, 128, 2, 2, 512, True, dtype, 56)
+        paged_atol = 2e-5 if dtype == torch.float32 else 2e-2
+        paged_case(f"{tag} hd320 G4", paged_inputs(3, 2, 4, 320, 64, 16, 4, [50, 64, 1],
+                                                   dtype, 57), 16, paged_atol)
+        long_args = paged_inputs(4, 2, 2, 512, 4 * 126 + 1, 16, 126, [50, 2000, 49, 1],
+                                 dtype, 58)
+        out = paged_case(f"{tag} hd512 one slot 40x longer (n_split "
+                         f"{paged_plan(long_args)[0]})", long_args, 16, paged_atol)
+        check(torch.equal(out, paged_attention_decode(*long_args, page_size=16)),
+              f"paged {tag} hd512: two launches differ")
+    rows = dict(fwd=wide_fwd_timing(16, 1024, 512, 59))
+    # SDPA's flash and cuDNN backwards stop at head_dim 256; its memory-efficient
+    # backend takes D = 512 (dq, dk and dv in one call)
+    bwd = bwd_timing(16, 1024, 512, 60, sdpa_backends=("EFFICIENT_ATTENTION",))
+    for key in ("dq", "dkv"):
+        rows[key] = dict(bwd[key], shape="bh=16 T=1024 D=512 bf16 causal")
+    wide = paged_inputs(8, 4, 2, 512, 256, 16, 128, [128, 140, 113, 159, 97, 150, 131, 120],
+                        torch.bfloat16, 61)
+    err = max_err(paged_attention_decode(*wide, page_size=16),
+                  paged_attention_reference(*wide, page_size=16))
+    check(err <= 2e-2, f"paged wide engine shapes error {err}")
+    rows["paged"] = dict(paged_timing("bf16 B=8 P_max=128 D=512", wide, 16, torch.bfloat16),
+                         shape="B=8 KH=4 G=2 D=512 page 16 P_max=128 bf16", max_abs_err=err)
+    print(f"wide heads phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def llm_decode_rate(eng, ps, gen_cfg):
+    """(decode tokens/s, s for the whole call): generate_ids at gen_cfg
+    against the same call with one new token (prefill and first sample
+    only); both end in the engine's read-back."""
+    one = GenerationConfig(max_new_tokens=1, temperature=gen_cfg.temperature,
+                           top_k=gen_cfg.top_k, seed=gen_cfg.seed)
+    t0 = time.perf_counter()
+    eng.generate_ids(ps, one)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = eng.generate_ids(ps, gen_cfg)
+    t_all = time.perf_counter() - t0
+    steps = gen_cfg.max_new_tokens - 1
+    return outs, len(ps) * steps / (t_all - t_one), t_all
+
+
+def phase_llm_engine():
+    """LLMEngine (dense KV cache) at ModelConfig()'s width: 8 greedy prompts
+    and one stream at temperature 0.8 with top_k=40, decode tokens/s; f32
+    greedy streams card == CPU; then ModelConfig(n_experts=4): the engine
+    generates, forward at B=4, T=2048 launches the flash kernel, an f32 MoE
+    forward card vs CPU, and a few MoE train steps through the flash
+    forward and backward kernels."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tfm.ModelConfig()
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), DEV)
+    eng = LLMEngine(cfg, params)
+    ps = prompts(cfg)
+    eng.generate_ids([ps[0][:16]], GenerationConfig(max_new_tokens=4))  # warm-up
+    greedy = GenerationConfig(max_new_tokens=64)
+    outs, tps, wall = llm_decode_rate(eng, ps, greedy)
+    check(all(len(o) == 64 for o in outs), f"LLMEngine lengths {[len(o) for o in outs]}")
+    check(all(0 <= x < cfg.vocab_size for o in outs for x in o), "token out of vocab")
+    top_k = GenerationConfig(max_new_tokens=64, temperature=0.8, top_k=40, seed=17)
+    sampled, tps_k, _ = llm_decode_rate(eng, ps[:1], top_k)
+    check(len(sampled[0]) == 64 and sampled[0] != outs[0], "top_k stream equals the greedy one")
+    check(eng.generate_ids(ps[:1], top_k) == sampled, "top_k stream not reproducible")
+    print(f"llm engine ModelConfig() 8 prompts x 96 tokens, 64 greedy tokens: {wall:.3f} s, "
+          f"decode {tps:.1f} tokens/s; one stream at temperature 0.8 top_k 40: "
+          f"{tps_k:.1f} tokens/s")
+
+    cfg32 = tfm.ModelConfig(dtype=torch.float32)
+    p32 = tfm.init_params(cfg32, torch.Generator().manual_seed(0), "cpu")
+    short = GenerationConfig(max_new_tokens=32)
+    on_card = LLMEngine(cfg32, p32).generate_ids(ps, short)
+    on_cpu = LLMEngine(cfg32, p32, device="cpu").generate_ids(ps, short)
+    same = sum(a == b for a, b in zip(on_card, on_cpu))
+    print(f"llm engine f32 card vs CPU (allow_tf32=False): {same}/8 greedy streams "
+          f"token-exact")
+    check(same == len(ps), "LLMEngine f32 greedy streams differ between card and CPU")
+    del eng, params, p32
+
+    moe = tfm.ModelConfig(n_experts=4)
+    pm = tfm.init_params(moe, torch.Generator().manual_seed(1), DEV)
+    moe_outs, moe_tps, _ = llm_decode_rate(LLMEngine(moe, pm), ps, greedy)
+    check(all(len(o) == 64 for o in moe_outs), "MoE LLMEngine lengths")
+    tokens = torch.randint(0, moe.vocab_size, (4, 2048), generator=gen(1), device=DEV)
+    flash_attention_forward.launches = 0
+    logits = tfm.forward(pm, tokens, moe)
+    torch.cuda.synchronize()
+    moe_launches = flash_attention_forward.launches
+    check(tuple(logits.shape) == (4, 2048, moe.vocab_size)
+          and bool(torch.isfinite(logits).all()), "MoE forward logits")
+    check(moe_launches > 0, "MoE forward did not launch the flash kernel")
+    moe_ms = time_ms(lambda: tfm.forward(pm, tokens, moe), iters=3, warmup=1)
+    del logits
+    leaves = [x.requires_grad_() for x in tfm.param_leaves(pm)]
+    step = tfm.make_train_step(moe, torch.optim.Adam(leaves, lr=1e-3))
+    batch = tokens[:2, :513]
+    flash_attention_forward.launches = 0
+    flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+    losses = [step(pm, batch).item() for _ in range(3)]
+    train_launches = (flash_attention_forward.launches, flash_attention_bwd_dq.launches,
+                      flash_attention_bwd_dkv.launches)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"MoE train losses {losses}")
+    check(min(train_launches) > 0, f"MoE train step launches {train_launches}")
+    print(f"llm engine MoE ModelConfig(n_experts=4): decode {moe_tps:.1f} tokens/s; forward "
+          f"B=4 T=2048 {moe_ms:.2f} ms, flash launches {moe_launches}; 3 train steps B=2 "
+          f"T=512 losses {['%.4f' % x for x in losses]}, launches fwd/dq/dkv {train_launches}")
+    del pm, leaves, step
+    torch.cuda.empty_cache()
+
+    moe32 = tfm.ModelConfig(n_experts=4, dtype=torch.float32)
+    p_cpu = tfm.init_params(moe32, torch.Generator().manual_seed(2), "cpu")
+    tok = torch.randint(0, moe32.vocab_size, (1, 256), generator=torch.Generator().manual_seed(3))
+    want = tfm.forward(p_cpu, tok, moe32)
+    got = tfm.forward(tfm.params_to(p_cpu, DEV), tok.to(DEV), moe32).cpu()
+    err = max_err(got, want)
+    print(f"llm engine MoE f32 forward B=1 T=256 card vs CPU: max_abs_err {err:.3e} "
+          f"(atol 1e-3)")
+    check(err <= 1e-3, f"MoE f32 forward card vs CPU error {err}")
+    print(f"llm engine phase: {time.perf_counter() - t0:.1f} s")
+    return dict(tps=tps, tps_top_k=tps_k, moe_tps=moe_tps, moe_forward_ms=moe_ms)
+
+
+def phase_llm_disagg():
+    """The hand-off, the prefix cache and the weights swap of the continuous
+    engine at ModelConfig()'s width in f32 (TF32 off), the device plane on:
+    prefill_extract hands CUDA tensors that seal as device frames into a
+    NativeObjectStore and land back on the card; adopt_pages decodes them
+    token-exact with a monolithic engine with no prefill; engine A publishes
+    a prefix that engine B hits; swap_params fences epochs, retags the
+    cache and force-evicts a wedged slot at its drain deadline."""
+    import tempfile
+
+    from ray_tpu_torch.cluster import device_plane as dp
+    from ray_tpu_torch.cluster import serialization as wire
+    from ray_tpu_torch.native.shm_store import NativeObjectStore
+    from ray_tpu_torch.serve.admission import Overloaded
+    from ray_tpu_torch.serve.prefix_cache import SharedPrefixCache
+
+    t0 = time.perf_counter()
+    os.environ["RAY_TPU_DEVICE_PLANE"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tfm.ModelConfig(dtype=torch.float32)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), DEV)
+    # 90 tokens: a prompt publishes its 5 full pages of 16, and a lookup
+    # may restore up to the page before its last token, so 5 pages too
+    ps = [p[:90] for p in prompts(cfg, n=3)]
+    engines = []
+
+    def engine(p=params, **kw):
+        engines.append(ContinuousBatchingEngine(cfg, p, **kw))
+        return engines[-1]
+
+    store = NativeObjectStore(path=os.path.join(
+        tempfile.gettempdir(), f"ray_tpu_torch_smoke_{os.getpid()}.shm"), capacity=256 << 20)
+    try:
+        # 1. the hand-off through device frames
+        sampled = GenerationConfig(max_new_tokens=32, temperature=0.8, seed=9)
+        want = list(engine().stream_ids(ps[0], sampled))
+        pre, dec = engine(), engine()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        manifest, k, v = pre.prefill_extract(ps[0], sampled)
+        torch.cuda.synchronize()
+        t_extract = time.perf_counter() - t1
+        check(k.is_cuda and v.is_cuda, "prefill_extract handed host blocks with the plane on")
+        seals = dp.device_stats()["device_frame_seals_total"]
+        t1 = time.perf_counter()
+        parts, total = wire.dumps_parts((manifest, k, v))
+        store.put_frames("handoff" + "0" * 21, parts)
+        t_seal = time.perf_counter() - t1
+        check(dp.device_stats()["device_frame_seals_total"] == seals + 2,
+              "the hand-off's blocks did not seal as device frames")
+        t1 = time.perf_counter()
+        with dp.landing("device"):
+            m2, k2, v2 = wire.loads(store.get_view("handoff" + "0" * 21))
+        torch.cuda.synchronize()
+        t_land = time.perf_counter() - t1
+        check(k2.is_cuda and torch.equal(k2, k) and torch.equal(v2, v),
+              "the hand-off did not land on the card equal")
+        paged_attention_decode.launches = 0
+        rid = dec.adopt_pages(m2, k2, v2)
+        got = list(dec.stream_rid(rid))
+        launches = paged_attention_decode.launches
+        check(got == want, "adopted stream differs from the monolithic one")
+        check(dec.full_prefill_count == 0 and dec.adopted_count == 1,
+              f"decode engine stats {dec.stats()}")
+        check(launches > 0, "adopted decode did not launch the paged kernel")
+        print(f"llm disagg hand-off f32 90-token prompt ({total} bytes sealed): extract "
+              f"{t_extract * 1e3:.2f} ms, seal+put {t_seal * 1e3:.2f} ms, land "
+              f"{t_land * 1e3:.2f} ms; adopted stream == monolithic (32 tokens), "
+              f"full prefills 0, adopted 1, paged launches {launches}")
+
+        # 2. the prefix cache: engine A publishes, engine B hits
+        cache = SharedPrefixCache(store, page_size=16, model_sig="smoke")
+        greedy = GenerationConfig(max_new_tokens=32)
+        a = engine(prefix_cache=cache)
+        seals = dp.device_stats()["device_frame_seals_total"]
+        want_a = a.generate_ids([ps[1]], greedy)[0]
+        check(cache.inserts == 1 and dp.device_stats()["device_frame_seals_total"] > seals,
+              "engine A's prefix did not go in as device frames")
+        hit = cache.lookup(ps[1] + [5])
+        check(hit is not None and hit.on_device(), "the prefix hit did not land on the card")
+        hit.release()
+        b = engine(prefix_cache=cache)
+        paged_attention_decode.launches = 0
+        got_b = b.generate_ids([ps[1]], greedy)[0]
+        longer = ps[1] + ps[2][:40]
+        got_long = b.generate_ids([longer], greedy)[0]
+        launches_b = paged_attention_decode.launches
+        check(got_b == want_a, "engine B's prefix-hit stream differs from engine A's")
+        check(b.full_prefill_count == 0 and cache.hits >= 2,
+              f"engine B stats {b.stats()}")
+        check(got_long == engine().generate_ids([longer], greedy)[0],
+              "the longer prompt's prefix-hit stream differs from a full prefill's")
+        check(launches_b > 0, "the decode after a prefix hit did not launch the paged kernel")
+        print(f"llm disagg prefix cache: B hit A's 80-token prefix (hits {cache.hits}, "
+              f"inserts {cache.inserts}), full prefills 0, streams equal, paged launches "
+              f"{launches_b}")
+
+        # 3. weights swap: drain on the old epoch, queue on the new, retag
+        alt = tfm.init_params(cfg, torch.Generator().manual_seed(5), DEV)
+        short = GenerationConfig(max_new_tokens=16)
+        want_old = engine().generate_ids([ps[0]], short)[0]
+        want_new = engine(alt).generate_ids([ps[0]], short)[0]
+        swap_cache = SharedPrefixCache(store, page_size=16, model_sig="swap")
+        eng = engine(prefix_cache=swap_cache)
+        rid_a = eng.submit(ps[0], short)
+        eng.step()
+        rid_b = eng.submit(ps[0], short)  # queued behind the swap
+        check(eng.swap_params(alt, model_id="alt") == 1, "weights_epoch did not bump")
+        check(eng.results.pop(rid_a) == want_old, "the drained stream crossed weights")
+        while rid_b not in eng.results:
+            eng.step()
+        check(eng.results.pop(rid_b) == want_new, "the queued request missed the new weights")
+        check(swap_cache.model_sig == "swap|alt", "the cache was not retagged")
+        # the queued request's prompt was published under the old weights
+        # by the first: after the retag it missed and prefilled in full
+        check(eng.full_prefill_count == 2, "a stale prefix hit after the swap")
+        os.environ["RAY_TPU_SERVE_SWAP_DRAIN_DEADLINE_S"] = "0.0001"
+        try:
+            wedged = eng.submit(ps[1], GenerationConfig(max_new_tokens=200))
+            eng.step()
+            eng.step()
+            eng.swap_params(params, model_id="base")
+            partial = eng.results.pop(wedged)
+            check(eng.swap_force_evicted == 1 and 0 < len(partial) < 200,
+                  f"drain deadline: evicted {eng.swap_force_evicted}, {len(partial)} tokens")
+            eng._swapping, eng._swap_started = True, time.monotonic() - 10.0
+            try:
+                eng.submit(ps[1], short)
+                fail("an expired drain did not shed the submit")
+            except Overloaded as e:
+                check(e.reason == "weights_swap", f"shed reason {e.reason}")
+            finally:
+                eng._swapping, eng._swap_started = False, None
+        finally:
+            del os.environ["RAY_TPU_SERVE_SWAP_DRAIN_DEADLINE_S"]
+        print(f"llm disagg swap: in-flight finished on epoch 0, queued admitted on epoch 1, "
+              f"cache retagged ({swap_cache.model_sig}), drain deadline evicted 1 slot at "
+              f"{len(partial)} tokens and shed the next submit")
+        leaked = [e.pool.usable_pages - e.pool.free_pages for e in engines]
+        check(not any(leaked), f"pages leaked: {leaked}")
+    finally:
+        store.close(unlink=True)
+    print(f"llm disagg phase: {time.perf_counter() - t0:.1f} s")
+    return dict(extract_ms=t_extract * 1e3, seal_ms=t_seal * 1e3, land_ms=t_land * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -3421,6 +3760,9 @@ def main() -> None:
     paged_launches, tps = phase_serve()
     train_launches, step_ms, train_tps = phase_train()
     phase_train_f32()
+    wide_rows = phase_wide_heads()
+    llm = phase_llm_engine()
+    disagg = phase_llm_disagg()
     phase_scheduler()
     phase_runtime()
     phase_cluster()
@@ -3436,21 +3778,24 @@ def main() -> None:
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/paged_attention.py:102",
-             launches=paged_launches, **paged_row),
+             launches=paged_launches, **paged_row, wide_shape=wide_rows["paged"]),
         dict(name="flash_attention_fwd", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",
-             launches=flash_launches, **flash_row),
+             launches=flash_launches, **flash_row, wide_shape=wide_rows["fwd"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:230",
-             launches=train_launches["dq"], **bwd_rows["dq"]),
+             launches=train_launches["dq"], **bwd_rows["dq"], wide_shape=wide_rows["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:247",
-             launches=train_launches["dkv"], **bwd_rows["dkv"]),
+             launches=train_launches["dkv"], **bwd_rows["dkv"], wide_shape=wide_rows["dkv"]),
     ]
-    print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s")
+    print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s; "
+          f"LLMEngine decode {llm['tps']:.1f} tokens/s (MoE {llm['moe_tps']:.1f}); hand-off "
+          f"extract/seal/land {disagg['extract_ms']:.2f}/{disagg['seal_ms']:.2f}/"
+          f"{disagg['land_ms']:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """A torch port of the parts of ``jax.random`` that decode sampling uses.
 
-Ports what ``ray_tpu/llm/continuous.py`` draws from ``jax.random``
-(``PRNGKey``, ``fold_in``, ``categorical``) and what the scheduler draws
-(``uniform``, and ``randint`` at ``ray_tpu/scheduler/hybrid.py:248``):
+Ports what ``ray_tpu/llm/continuous.py`` and ``ray_tpu/llm/engine.py``
+draw from ``jax.random`` (``PRNGKey``, ``fold_in``, ``categorical``) and
+what the scheduler draws (``uniform``, and ``randint`` at
+``ray_tpu/scheduler/hybrid.py:248``):
 threefry2x32 as in
 ``jax/_src/prng.py`` with ``jax_threefry_partitionable=True`` (the
 default in jax 0.9), the bits-to-float mapping of ``uniform``, and the
@@ -131,7 +132,9 @@ def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """``jax.random.categorical`` over the last axis (Gumbel-argmax); one
-    key per row of ``logits``: ``key`` is ``[*logits.shape[:-1], 2]``."""
-    g = gumbel(key, (logits.shape[-1],))
-    return torch.argmax(g + logits, dim=-1)
+    """``jax.random.categorical`` over the last axis (Gumbel-argmax). A
+    single key ``[2]`` draws the Gumbel noise over the whole of ``logits``,
+    as jax does for a batch from one key; a key per row is
+    ``[*logits.shape[:-1], 2]``."""
+    shape = tuple(logits.shape) if key.dim() == 1 else (logits.shape[-1],)
+    return torch.argmax(gumbel(key, shape) + logits, dim=-1)

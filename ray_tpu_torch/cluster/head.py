@@ -3522,10 +3522,14 @@ class HeadServer:
                     # specs: re-raising would make the loop requeue the
                     # whole batch, duplicating specs _schedule_spread
                     # already granted (at-most-once violation) and specs
-                    # already parked infeasible.
-                    logger.exception(
-                        "pipeline submit failed; respilling round"
-                    )
+                    # already parked infeasible. A round dispatched while
+                    # shutdown() stops the pipeline is that race, not a fault.
+                    if self._shutdown:
+                        logger.debug("pipeline stopped by shutdown; respilling round")
+                    else:
+                        logger.exception(
+                            "pipeline submit failed; respilling round"
+                        )
                     device_state.invalidate()
                     with self._cond:
                         self._deferred_rounds.pop(id(sched), None)

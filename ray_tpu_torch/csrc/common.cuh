@@ -39,12 +39,12 @@ __device__ __forceinline__ void store_vec(float* dst, const uint4& u) {
   for (int i = 0; i < Vec<T>::N; ++i) dst[i] = to_f(e[i]);
 }
 
-// Copy a [ROWS, D] tile of T from global memory (row stride D) into f32
-// shared memory (row stride LD) over THREADS threads, optionally times
-// `mul` rounded to T.
+// Copy a [ROWS, D] tile of T from global memory (row stride `stride`, D
+// unless given) into f32 shared memory (row stride LD) over THREADS
+// threads, optionally times `mul` rounded to T.
 template <typename T, int D, int ROWS, int LD, int THREADS>
 __device__ __forceinline__ void tile_to_smem(float* dst, const T* src, int tid, float mul,
-                                             bool scaled) {
+                                             bool scaled, int stride = D) {
   constexpr int VN = Vec<T>::N;
   constexpr int CPR = D / VN;
   constexpr int CH = ROWS * CPR / THREADS;
@@ -53,7 +53,7 @@ __device__ __forceinline__ void tile_to_smem(float* dst, const T* src, int tid, 
   for (int c = 0; c < CH; ++c) {
     const int idx = tid + c * THREADS;
     const int row = idx / CPR, col = (idx % CPR) * VN;
-    const uint4 u = *reinterpret_cast<const uint4*>(src + row * D + col);
+    const uint4 u = *reinterpret_cast<const uint4*>(src + (size_t)row * stride + col);
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int i = 0; i < VN; ++i)
@@ -72,6 +72,11 @@ template <int D> struct FmaGeom {
   static constexpr int kThreads = 64 * kTpr;
   static constexpr int kWalk = D > 128 ? 32 : 64;
 };
+
+// head_dim above 256: the flash kernels walk D in chunks of this many
+// columns (the wrapper pads D to a multiple of it), each block writing one
+// chunk of the output columns, on FmaGeom<kWideChunk>'s geometry
+constexpr int kWideChunk = 256;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo

@@ -54,7 +54,10 @@
 //   - f32 (tests and checks), and bf16 at D = 256, which the wgmma kernels
 //     do not take: plain f32 FMAs from shared memory, two threads a row (at
 //     D = 256 four, with 32-row tiles walked beside the resident 64-row
-//     one, to fit 227 KB of shared memory: FmaGeom in common.cuh).
+//     one, to fit 227 KB of shared memory: FmaGeom in common.cuh). Above
+//     256, D a multiple of 256: the D = 256 blocks walking D in 256-column
+//     chunks, the grid split over the outputs' chunks (the *_wide_kernel
+//     pair).
 //   - the Pallas rounding points: q * scale rounded to the input dtype, dO
 //     and dP in f32, dS rounded to the input dtype before dS.K and
 //     dS^T.(scale * Q), dQ scaled once more at the end, dK not. Pallas
@@ -253,6 +256,191 @@ __global__ void __launch_bounds__(FmaGeom<D>::kThreads) flash_bwd_dkv_fma_kernel
 
   T* dk_row = dk + ((size_t)bh * s_len + k_pos) * D;
   T* dv_row = dv + ((size_t)bh * s_len + k_pos) * D;
+#pragma unroll
+  for (int j = 0; j < HD; ++j) {
+    dk_row[TPR * j + hf] = from_f<T>(dka[j]);
+    dv_row[TPR * j + hf] = from_f<T>(dva[j]);
+  }
+}
+
+// head_dim above 256 (any multiple of kWideChunk, f32 or bf16): the FMA
+// kernels' blocks on FmaGeom<kWideChunk> with D walked in chunks. Block
+// (bh, tile, oc) writes output columns [oc * 256, oc * 256 + 256) of dQ (or
+// of dK and dV): per walked tile, S and dP accumulate over every chunk of
+// the four operands, staged in shared memory in turn, then the product
+// into the output reads only the chunk oc of its right operand. Every block
+// of a tile computes the same P and dS.
+template <typename T>
+__global__ void __launch_bounds__(FmaGeom<kWideChunk>::kThreads) flash_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, int t_len, int s_len, int d, int causal, float scale) {
+  constexpr int DC = kWideChunk;
+  constexpr int TPR = FmaGeom<DC>::kTpr, NT = FmaGeom<DC>::kThreads;
+  constexpr int BK = FmaGeom<DC>::kWalk;  // key tile
+  constexpr int LD = DC + 1, LP = BK + 1;
+  constexpr int HD = DC / TPR, HK = BK / TPR;
+
+  extern __shared__ float sm[];
+  float* qs = sm;              // [kBQ][LD] a chunk of q * scale, rounded to T
+  float* dos = qs + kBQ * LD;  // [kBQ][LD] a chunk of dO
+  float* ks = dos + kBQ * LD;  // [BK][LD] a chunk of K (last: chunk oc)
+  float* vs = ks + BK * LD;    // [BK][LD] a chunk of V
+  float* dss = vs + BK * LD;   // [kBQ][LP] dS rounded to T
+
+  const int nq = t_len / kBQ;
+  const int bh = blockIdx.x / nq;
+  const int qi = nq - 1 - (int)(blockIdx.x % nq);  // heaviest causal tiles first
+  const int oc = blockIdx.y, n_c = d / DC;
+  const int tid = threadIdx.x, r = tid / TPR, hf = tid % TPR;
+  const int q_pos = qi * kBQ + r;
+  const size_t q_off = ((size_t)bh * t_len + (size_t)qi * kBQ) * d;
+  const T* kbase = k + (size_t)bh * s_len * d;
+  const T* vbase = v + (size_t)bh * s_len * d;
+  const float scale_t = round_to<T>(scale);
+  const float lse_r = lse[(size_t)bh * t_len + q_pos];
+  const float delta_r = delta[(size_t)bh * t_len + q_pos];
+
+  float acc[HD];
+#pragma unroll
+  for (int j = 0; j < HD; ++j) acc[j] = 0.f;
+
+  int n_kb = s_len / BK;
+  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / BK + 1);
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const size_t k_off = (size_t)kb * BK * d;
+    float s[HK], dp[HK];
+#pragma unroll
+    for (int j = 0; j < HK; ++j) s[j] = dp[j] = 0.f;
+    for (int c = 0; c < n_c; ++c) {
+      __syncthreads();  // every thread is done with the previous chunks and dS
+      tile_to_smem<T, DC, kBQ, LD, NT>(qs, q + q_off + c * DC, tid, scale_t, true, d);
+      tile_to_smem<T, DC, kBQ, LD, NT>(dos, dout + q_off + c * DC, tid, 1.f, false, d);
+      tile_to_smem<T, DC, BK, LD, NT>(ks, kbase + k_off + c * DC, tid, 1.f, false, d);
+      tile_to_smem<T, DC, BK, LD, NT>(vs, vbase + k_off + c * DC, tid, 1.f, false, d);
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < DC; ++dd) {
+        const float qd = qs[r * LD + dd], od = dos[r * LD + dd];
+#pragma unroll
+        for (int j = 0; j < HK; ++j) {
+          s[j] += qd * ks[(TPR * j + hf) * LD + dd];
+          dp[j] += od * vs[(TPR * j + hf) * LD + dd];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HK; ++j) {
+      const int c = TPR * j + hf;
+      const float sv = (causal && kb * BK + c > q_pos) ? -1e30f : s[j];
+      const float p = expf(sv - lse_r);
+      dss[r * LP + c] = round_to<T>(p * (dp[j] - delta_r));
+    }
+    __syncthreads();  // the row's dS is complete, and K's last chunk is read
+    tile_to_smem<T, DC, BK, LD, NT>(ks, kbase + k_off + oc * DC, tid, 1.f, false, d);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      const float dsc = dss[r * LP + c];
+#pragma unroll
+      for (int j = 0; j < HD; ++j) acc[j] += dsc * ks[c * LD + TPR * j + hf];
+    }
+  }
+
+  T* out = dq + ((size_t)bh * t_len + q_pos) * d + oc * DC;
+#pragma unroll
+  for (int j = 0; j < HD; ++j) out[TPR * j + hf] = from_f<T>(acc[j] * scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FmaGeom<kWideChunk>::kThreads) flash_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, int t_len, int s_len, int d, int causal,
+    float scale) {
+  constexpr int DC = kWideChunk;
+  constexpr int TPR = FmaGeom<DC>::kTpr, NT = FmaGeom<DC>::kThreads;
+  constexpr int BQ = FmaGeom<DC>::kWalk;  // Q tile
+  constexpr int LD = DC + 1, LP = BQ + 1;
+  constexpr int HD = DC / TPR, HQ = BQ / TPR;
+
+  extern __shared__ float sm[];
+  float* ks = sm;                 // [kBK][LD] a chunk of K
+  float* vs = ks + kBK * LD;      // [kBK][LD] a chunk of V
+  float* qs = vs + kBK * LD;      // [BQ][LD] a chunk of q * scale (last: chunk oc)
+  float* dos = qs + BQ * LD;      // [BQ][LD] a chunk of dO (last: chunk oc)
+  float* ps = dos + BQ * LD;      // [kBK][LP] P^T in f32
+  float* dss = ps + kBK * LP;     // [kBK][LP] dS^T rounded to T
+  float* lse_s = dss + kBK * LP;  // [BQ]
+  float* delta_s = lse_s + BQ;    // [BQ]
+
+  const int nk = s_len / kBK;
+  const int bh = blockIdx.x / nk;
+  const int ki = (int)(blockIdx.x % nk);
+  const int oc = blockIdx.y, n_c = d / DC;
+  const int tid = threadIdx.x, r = tid / TPR, hf = tid % TPR;
+  const int k_pos = ki * kBK + r;
+  const size_t k_off = ((size_t)bh * s_len + (size_t)ki * kBK) * d;
+  const float scale_t = round_to<T>(scale);
+
+  float dka[HD], dva[HD];
+#pragma unroll
+  for (int j = 0; j < HD; ++j) dka[j] = dva[j] = 0.f;
+
+  const int n_qb = t_len / BQ;
+  const int qb_start = causal ? ki * kBK / BQ : 0;  // earlier Q tiles see nothing
+  for (int qb = qb_start; qb < n_qb; ++qb) {
+    const size_t q_off = ((size_t)bh * t_len + (size_t)qb * BQ) * d;
+    float s[HQ], dp[HQ];
+#pragma unroll
+    for (int j = 0; j < HQ; ++j) s[j] = dp[j] = 0.f;
+    for (int c = 0; c < n_c; ++c) {
+      __syncthreads();  // every thread is done with the previous chunks
+      if (c == 0) {
+        if (tid < BQ) lse_s[tid] = lse[(size_t)bh * t_len + qb * BQ + tid];
+        else if (tid < 2 * BQ) delta_s[tid - BQ] = delta[(size_t)bh * t_len + qb * BQ + tid - BQ];
+      }
+      tile_to_smem<T, DC, kBK, LD, NT>(ks, k + k_off + c * DC, tid, 1.f, false, d);
+      tile_to_smem<T, DC, kBK, LD, NT>(vs, v + k_off + c * DC, tid, 1.f, false, d);
+      tile_to_smem<T, DC, BQ, LD, NT>(qs, q + q_off + c * DC, tid, scale_t, true, d);
+      tile_to_smem<T, DC, BQ, LD, NT>(dos, dout + q_off + c * DC, tid, 1.f, false, d);
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < DC; ++dd) {
+        const float kd = ks[r * LD + dd], vd = vs[r * LD + dd];
+#pragma unroll
+        for (int j = 0; j < HQ; ++j) {
+          s[j] += kd * qs[(TPR * j + hf) * LD + dd];
+          dp[j] += vd * dos[(TPR * j + hf) * LD + dd];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HQ; ++j) {
+      const int c = TPR * j + hf;
+      const float sv = (causal && k_pos > qb * BQ + c) ? -1e30f : s[j];
+      const float p = expf(sv - lse_s[c]);
+      ps[r * LP + c] = p;
+      dss[r * LP + c] = round_to<T>(p * (dp[j] - delta_s[c]));
+    }
+    __syncthreads();  // the row's P^T and dS^T are complete, the last chunks read
+    tile_to_smem<T, DC, BQ, LD, NT>(qs, q + q_off + oc * DC, tid, scale_t, true, d);
+    tile_to_smem<T, DC, BQ, LD, NT>(dos, dout + q_off + oc * DC, tid, 1.f, false, d);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BQ; ++c) {
+      const float pc = ps[r * LP + c], dsc = dss[r * LP + c];
+#pragma unroll
+      for (int j = 0; j < HD; ++j) {
+        dva[j] += pc * dos[c * LD + TPR * j + hf];
+        dka[j] += dsc * qs[c * LD + TPR * j + hf];
+      }
+    }
+  }
+
+  T* dk_row = dk + ((size_t)bh * s_len + k_pos) * d + oc * DC;
+  T* dv_row = dv + ((size_t)bh * s_len + k_pos) * d + oc * DC;
 #pragma unroll
   for (int j = 0; j < HD; ++j) {
     dk_row[TPR * j + hf] = from_f<T>(dka[j]);
@@ -812,7 +1000,36 @@ cudaError_t launch_dkv(const BwdArgs& a) {
 }
 
 template <typename T>
+cudaError_t launch_wide(bool is_dq, int d, const BwdArgs& a) {
+  constexpr int DC = kWideChunk, W = FmaGeom<DC>::kWalk, NT = FmaGeom<DC>::kThreads;
+  if (is_dq) {
+    const size_t smem = sizeof(float) * ((2 * kBQ + 2 * W) * (DC + 1) + kBQ * (W + 1));
+    auto kern = flash_bwd_dq_wide_kernel<T>;
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)a.bh * (unsigned)(a.t / kBQ), (unsigned)(d / DC));
+    kern<<<grid, NT, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.t, a.s, d,
+        a.causal, a.scale);
+    return cudaGetLastError();
+  }
+  const size_t smem =
+      sizeof(float) * ((2 * kBK + 2 * W) * (DC + 1) + 2 * kBK * (W + 1) + 2 * W);
+  auto kern = flash_bwd_dkv_wide_kernel<T>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)a.bh * (unsigned)(a.s / kBK), (unsigned)(d / DC));
+  kern<<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.t, a.s, d, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t dispatch(bool is_dq, int d, const BwdArgs& a) {
+  if (d > kWideChunk && d % kWideChunk == 0) return launch_wide<T>(is_dq, d, a);
   switch (d) {
     case 32:
       return is_dq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
@@ -838,8 +1055,9 @@ int run(bool is_dq, const BwdArgs& a, int d, int dtype) {
 
 }  // namespace
 
-// Both entry points return the cudaError_t of the launch (0 = success). T
-// and S must be multiples of 64; the caller allocates the outputs and
+// Both entry points return the cudaError_t of the launch (0 = success). D
+// is 32, 64, 128, 256 or a larger multiple of 256; T and S must be
+// multiples of 64; the caller allocates the outputs and
 // checks shapes, dtypes, contiguity and 16-byte alignment. lse and delta
 // are [bh, 1, T] f32.
 extern "C" int ray_flash_attention_bwd_dq(const void* q, const void* k, const void* v,

@@ -34,7 +34,9 @@
 //     future; causal blocks stop at the diagonal, heaviest Q tiles first.
 // f32 (tests and checks), and bf16 at D = 256, which the wgmma kernel does
 // not take: plain f32 FMAs from shared memory, 64x64 tiles (at D = 256,
-// 214,016 B of shared memory and four threads a row).
+// 214,016 B of shared memory and four threads a row). Above 256, D a
+// multiple of 256: the same block walking D in 256-column chunks, the grid
+// split over the output's chunks (flash_fwd_wide_kernel).
 // Both keep the Pallas rounding points: q * scale in the input dtype, P cast
 // to V's dtype before P.V, f32 accumulation.
 // Not yet done (later work): persistent blocks, and on them
@@ -168,6 +170,111 @@ __global__ void __launch_bounds__(FmaGeom<D>::kThreads) flash_fwd_fma_kernel(
 #pragma unroll
   for (int j = 0; j < HD; ++j) ob[TPR * j + hf] = from_f<T>(acc[j] / l_safe);
   if (hf == 0) lse[(size_t)bh * t_len + q_pos] = m + logf(l_safe);
+}
+
+// head_dim above 256 (any multiple of kWideChunk, f32 or bf16): the FMA
+// kernel's block on FmaGeom<kWideChunk>, with D walked in chunks. Block
+// (bh, Q tile, oc) writes output columns [oc * 256, oc * 256 + 256): per key
+// tile, S accumulates over every chunk of q * scale and K (each staged in
+// shared memory in turn), then P . V reads only V's chunk oc. Every block of
+// a Q tile computes the same S, so the row max, sum and lse agree; the
+// oc = 0 block writes lse.
+template <typename T>
+__global__ void __launch_bounds__(FmaGeom<kWideChunk>::kThreads) flash_fwd_wide_kernel(
+    const T* __restrict__ q,  // [bh, T, D]
+    const T* __restrict__ k,  // [bh, S, D]
+    const T* __restrict__ v,  // [bh, S, D]
+    T* __restrict__ o,        // [bh, T, D]
+    float* __restrict__ lse,  // [bh, 1, T]
+    int t_len, int s_len, int d, int causal, float scale) {
+  constexpr int DC = kWideChunk;
+  constexpr int TPR = FmaGeom<DC>::kTpr, NT = FmaGeom<DC>::kThreads;
+  constexpr int LD = DC + 1, LP = kBK + 1;
+  constexpr int HD = DC / TPR, HK = kBK / TPR;
+
+  extern __shared__ float sm[];
+  float* qs = sm;             // [kBQ][LD] a chunk of q * scale, rounded to T
+  float* ks = qs + kBQ * LD;  // [kBK][LD] a chunk of K, then chunk oc of V
+  float* ps = ks + kBK * LD;  // [kBQ][LP] P rounded to T
+
+  const int nq = t_len / kBQ;
+  const int bh = blockIdx.x / nq;
+  const int qi = nq - 1 - (int)(blockIdx.x % nq);  // heaviest causal tiles first
+  const int oc = blockIdx.y, n_c = d / DC;
+  const int tid = threadIdx.x, r = tid / TPR, hf = tid % TPR;
+  const int q_pos = qi * kBQ + r;
+  const T* qb = q + ((size_t)bh * t_len + (size_t)qi * kBQ) * d;
+  const T* kbase = k + (size_t)bh * s_len * d;
+  const T* vbase = v + (size_t)bh * s_len * d;
+  const float scale_t = round_to<T>(scale);
+
+  float m = -INFINITY, l = 0.f;
+  float acc[HD];
+#pragma unroll
+  for (int j = 0; j < HD; ++j) acc[j] = 0.f;
+
+  int n_kb = s_len / kBK;
+  if (causal) n_kb = min(n_kb, (qi * kBQ + kBQ - 1) / kBK + 1);
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const size_t k_off = (size_t)kb * kBK * d;
+    float s[HK];
+#pragma unroll
+    for (int j = 0; j < HK; ++j) s[j] = 0.f;
+    for (int c = 0; c < n_c; ++c) {
+      __syncthreads();  // every thread is done with the previous chunk (or V)
+      tile_to_smem<T, DC, kBQ, LD, NT>(qs, qb + c * DC, tid, scale_t, true, d);
+      tile_to_smem<T, DC, kBK, LD, NT>(ks, kbase + k_off + c * DC, tid, 1.f, false, d);
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < DC; ++dd) {
+        const float qd = qs[r * LD + dd];
+#pragma unroll
+        for (int j = 0; j < HK; ++j) s[j] += qd * ks[(TPR * j + hf) * LD + dd];
+      }
+    }
+    if (causal) {
+#pragma unroll
+      for (int j = 0; j < HK; ++j)
+        if (kb * kBK + TPR * j + hf > q_pos) s[j] = -1e30f;
+    }
+    float mx = s[0];
+#pragma unroll
+    for (int j = 1; j < HK; ++j) mx = fmaxf(mx, s[j]);
+#pragma unroll
+    for (int w = 1; w < TPR; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < HK; ++j) {
+      const float p = expf(s[j] - m_new);
+      sum += p;
+      ps[r * LP + TPR * j + hf] = round_to<T>(p);
+    }
+#pragma unroll
+    for (int w = 1; w < TPR; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    l = l * alpha + sum;
+    m = m_new;
+    __syncthreads();  // the row's P is complete, and K's last chunk is read
+    tile_to_smem<T, DC, kBK, LD, NT>(ks, vbase + k_off + oc * DC, tid, 1.f, false, d);
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < HD; ++j) acc[j] *= alpha;
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      const float pc = ps[r * LP + c];
+#pragma unroll
+      for (int j = 0; j < HD; ++j) acc[j] += pc * ks[c * LD + TPR * j + hf];
+    }
+  }
+
+  const float l_safe = fmaxf(l, 1e-30f);
+  T* ob = o + ((size_t)bh * t_len + q_pos) * d + oc * DC;
+#pragma unroll
+  for (int j = 0; j < HD; ++j) ob[TPR * j + hf] = from_f<T>(acc[j] / l_safe);
+  if (oc == 0 && hf == 0) lse[(size_t)bh * t_len + q_pos] = m + logf(l_safe);
 }
 
 // The bf16 kernel's key-tile rows and K/V ring stages by head_dim (the
@@ -416,8 +523,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 }
 
 template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                        int t, int s, int d, int causal, float scale, cudaStream_t stream) {
+  constexpr int DC = kWideChunk;
+  const size_t smem = sizeof(float) * ((kBQ + kBK) * (DC + 1) + kBQ * (kBK + 1));
+  auto kern = flash_fwd_wide_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)bh * (unsigned)(t / kBQ), (unsigned)(d / DC));
+  kern<<<grid, FmaGeom<DC>::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, t, s, d, causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void* o, float* lse,
                        int bh, int t, int s, int causal, float scale, cudaStream_t stream) {
+  if (d > kWideChunk && d % kWideChunk == 0)
+    return launch_wide<T>(q, k, v, o, lse, bh, t, s, d, causal, scale, stream);
   switch (d) {
     case 32:
       return launch<T, 32>(q, k, v, o, lse, bh, t, s, causal, scale, stream);
@@ -435,8 +560,8 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success; cudaErrorInvalidValue
-// also for a tensor map that cuTensorMapEncodeTiled refuses). T and S must be
-// multiples of 64; the caller allocates o and lse and checks shapes,
+// also for a tensor map that cuTensorMapEncodeTiled refuses). D is 32, 64,
+// 128, 256 or a larger multiple of 256; T and S must be multiples of 64; the caller allocates o and lse and checks shapes,
 // dtypes, contiguity and 16-byte alignment.
 extern "C" int ray_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        void* lse, int bh, int t, int s, int d, int causal,

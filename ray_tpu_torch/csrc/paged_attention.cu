@@ -41,6 +41,9 @@
 //     inputs give equal bits, whichever block finishes last;
 //   - every head_dim from 1 to 256, by instances over (vector bytes, lanes
 //     per token, vectors per lane); lanes past a row's end are masked.
+//     Above 256, a plain wide kernel (paged_decode_wide_kernel): one query
+//     row and 256 output columns a block, rows read from global memory,
+//     the same split and combine.
 // The Pallas rounding points stay: q * scale is formed in the input dtype,
 // P is rounded to the input dtype before P.V, and the running max, sum and
 // output are f32. Length 0 gives zeros, as the Pallas kernel's
@@ -56,7 +59,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 256;  // the widest head of paged_decode_kernel's instances
+constexpr int kWideCols = 256;    // output columns a block of the wide kernel writes
 constexpr int kShareRound = 16;  // a split's share is a multiple of this many tokens
 
 // Bytes of K and V a ring stage aims at (its tokens: this over 2 * row
@@ -108,8 +112,9 @@ struct PagedArgs {
   const int *tables, *lengths;  // [B, P_max], [B]
   void* out;                    // [B, KH, G, D]
   float* part_o;                // [B * KH * G, n_split, D] f32 partial outputs
-  float* part_ml;               // [B * KH * G, n_split, 2] f32 partial max and sum
+  float* part_ml;               // [B * KH * G, n_cc, n_split, 2] f32 partial max and sum
   int* tickets;                 // [B * KH * chunks], 0 between launches
+  int n_cc;                     // wide kernel: column chunks of kWideCols (else 1)
   int kh, g_all, rows, d, n_pages, page, p_max, n_split, tbl_cap;
   int stage_tokens;  // Inst::stage_tokens(d)
   float scale;
@@ -375,6 +380,136 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const PagedArgs 
   if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
+// head_dim above kMaxHeadDim (any width, f32 or bf16): one query row a
+// block, grid (slot * kv head, split, row * n_cc + column chunk), each block
+// writing kWideCols output columns of its row. A warp takes every fourth
+// token of the split's share: its lanes stride the whole K row from global
+// memory (the q row waits in shared memory, as q * scale in the input
+// dtype) for the score, reduce it by shuffles, and keep the running max,
+// sum and their 8 columns of the chunk's output; V is read for the chunk's
+// columns only. The warps merge in order through shared memory and the
+// splits through the workspace and ticket, as paged_decode_kernel does
+// (part_ml holds a (max, sum) per column chunk, so each chunk's merge reads
+// only what its own blocks wrote).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_decode_wide_kernel(const PagedArgs a) {
+  constexpr int CPL = kWideCols / 32;  // output columns a lane
+  const int bh = blockIdx.x, b = bh / a.kh, h = bh - b * a.kh;
+  const int split = blockIdx.y;
+  const int r = blockIdx.z / a.n_cc, cc = blockIdx.z - r * a.n_cc;
+  const int d = a.d, c0 = cc * kWideCols, nc = min(kWideCols, d - c0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [d] q * scale
+  float* wm = qs + d;                          // [kWarps] max
+  float* wl = wm + kWarps;                     // [kWarps] sum
+  float* wo = wl + kWarps;                     // [kWarps][kWideCols] output
+  int* tbl = reinterpret_cast<int*>(wo + kWarps * kWideCols);
+
+  const int n_valid = max(0, min(a.lengths[b], a.p_max * a.page));
+  const int share =
+      ((n_valid + a.n_split - 1) / a.n_split + kShareRound - 1) / kShareRound * kShareRound;
+  const int t_begin = min(n_valid, split * share), t_end = min(n_valid, t_begin + share);
+  const int p_first = t_begin / a.page;
+  const int n_tp = t_end > t_begin ? (t_end - 1) / a.page - p_first + 1 : 0;
+  const int* table = a.tables + (size_t)b * a.p_max + p_first;
+  for (int i = tid; i < n_tp; i += kThreads) tbl[i] = table[i];
+  const size_t row_g = (size_t)bh * a.g_all + r;  // global index of this query row
+  const T* qb = static_cast<const T*>(a.q) + row_g * d;
+  const float scale_t = round_to<T>(a.scale);
+  for (int i = tid; i < d; i += kThreads) qs[i] = round_to<T>(to_f(qb[i]) * scale_t);
+  __syncthreads();
+
+  const size_t head_off = (size_t)h * a.n_pages * a.page * d;
+  const T* kbase = static_cast<const T*>(a.k) + head_off;
+  const T* vbase = static_cast<const T*>(a.v) + head_off + c0;
+  float m = -INFINITY, l = 0.f, o[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) o[j] = 0.f;
+  for (int pos = t_begin + warp; pos < t_end; pos += kWarps) {
+    const int pid = tbl[pos / a.page - p_first];
+    const size_t row = ((size_t)pid * a.page + pos % a.page) * d;
+    float sc = 0.f;
+    for (int i = lane; i < d; i += 32) sc += qs[i] * to_f(kbase[row + i]);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) sc += __shfl_xor_sync(0xffffffffu, sc, w);
+    float vf[CPL];
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int c = lane + 32 * j;
+      vf[j] = c < nc ? to_f(vbase[row + c]) : 0.f;
+    }
+    if (sc > m) {  // new running max: rescale, and P = 1
+      const float alpha = expf(m - sc);
+      m = sc;
+      l = l * alpha + 1.f;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) o[j] = o[j] * alpha + vf[j];
+    } else {
+      const float p = expf(sc - m);
+      const float pt = round_to<T>(p);
+      l += p;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) o[j] += pt * vf[j];
+    }
+  }
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) wo[warp * kWideCols + lane + 32 * j] = o[j];
+  __syncthreads();
+
+  // merge the four warps in order: the block's (m, l, o) for its columns
+  float mx = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w]);
+  T* out = static_cast<T*>(a.out) + row_g * d + c0;
+  const size_t ml = (row_g * a.n_cc + cc) * a.n_split;  // this chunk's (max, sum) slots
+  for (int c = tid; c < nc; c += kThreads) {
+    float sum = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float alpha = wm[w] == -INFINITY ? 0.f : expf(wm[w] - mx);
+      sum += wl[w] * alpha;
+      acc += wo[w * kWideCols + c] * alpha;
+    }
+    if (a.n_split == 1) {
+      out[c] = from_f<T>(acc / fmaxf(sum, 1e-30f));
+    } else {
+      a.part_o[(row_g * a.n_split + split) * d + c0 + c] = acc;
+      if (c == 0) {
+        a.part_ml[2 * (ml + split)] = mx;
+        a.part_ml[2 * (ml + split) + 1] = sum;
+      }
+    }
+  }
+  if (a.n_split == 1) return;
+
+  // the block that takes the last ticket merges the partials in split order
+  __threadfence();
+  __syncthreads();
+  int* ticket = a.tickets + (size_t)blockIdx.x * gridDim.z + blockIdx.z;
+  const bool last = __syncthreads_or(tid == 0 && atomicAdd(ticket, 1) == a.n_split - 1);
+  if (!last) return;
+  __threadfence();
+  float big = -INFINITY;
+  for (int sp = 0; sp < a.n_split; ++sp) big = fmaxf(big, __ldcg(a.part_ml + 2 * (ml + sp)));
+  for (int c = tid; c < nc; c += kThreads) {
+    float sum = 0.f, acc = 0.f;
+    for (int sp = 0; sp < a.n_split; ++sp) {
+      const float ms = __ldcg(a.part_ml + 2 * (ml + sp));
+      const float alpha = ms == -INFINITY ? 0.f : expf(ms - big);
+      sum += __ldcg(a.part_ml + 2 * (ml + sp) + 1) * alpha;
+      acc += __ldcg(a.part_o + (row_g * a.n_split + sp) * d + c0 + c) * alpha;
+    }
+    out[c] = from_f<T>(acc / fmaxf(sum, 1e-30f));
+  }
+  if (tid == 0) *ticket = 0;  // ready for the next launch
+}
+
 // Raise a kernel's dynamic shared-memory cap to the device's opt-in
 // maximum, once per device (`done` holds a bit per device; a launch under
 // 48 KB needs no call)
@@ -443,6 +578,21 @@ cudaError_t with_instance(int d, Op& op) {
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+cudaError_t launch_wide(const PagedArgs& a, int b, cudaStream_t stream) {
+  static std::atomic<unsigned> smem_set{0};
+  const size_t smem = sizeof(float) * ((size_t)a.d + kWarps * (2 + kWideCols)) +
+                      sizeof(int) * (size_t)a.tbl_cap;
+  auto kern = paged_decode_wide_kernel<T>;
+  const cudaError_t err = allow_smem_once(kern, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  PagedArgs args = a;
+  args.rows = 1;
+  const dim3 grid((unsigned)b * a.kh, a.n_split, (unsigned)a.g_all * a.n_cc);
+  kern<<<grid, kThreads, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
 struct LaunchOp {
   const PagedArgs& a;
   int b;
@@ -464,19 +614,22 @@ struct RowsOp {
 
 // Query rows of one head that a block takes at this head_dim and dtype (a
 // head with more is chunked over blocks, each re-reading the head's K/V);
-// 0 for a head_dim or dtype the kernel does not take.
+// 1 above kMaxHeadDim (the wide kernel); 0 for a head_dim or dtype the
+// kernel does not take.
 extern "C" int ray_paged_attention_rows(int d, int dtype) {
   RowsOp op;
-  if (d < 1 || d > kMaxHeadDim) return 0;
+  if (d < 1 || (dtype != kF32 && dtype != kBF16)) return 0;
+  if (d > kMaxHeadDim) return 1;
   if (dtype == kF32) with_instance<float>(d, op);
   if (dtype == kBF16) with_instance<__nv_bfloat16>(d, op);
   return op.rows;
 }
 
 // Returns the cudaError_t of the launch (0 = success; cudaErrorInvalidValue
-// for a head_dim outside 1..256). With n_split > 1 `workspace` holds
-// B * KH * G * n_split * (D + 2) floats and `tickets` B * KH * G ints that
-// are 0 (each launch leaves them 0). tbl_cap bounds the pages one split
+// for a head_dim below 1). With n_split > 1 `workspace` holds
+// B * KH * G * n_split * (D + 2 * n_cc) floats and `tickets`
+// B * KH * G * n_cc ints that are 0 (each launch leaves them 0), where
+// n_cc = ceil(D / 256) above D = 256 and 1 up to it. tbl_cap bounds the pages one split
 // touches. The caller allocates `out` and checks shapes, dtypes,
 // contiguity and 16-byte alignment.
 extern "C" int ray_paged_attention_decode(const void* q, const void* k_pages,
@@ -486,17 +639,23 @@ extern "C" int ray_paged_attention_decode(const void* q, const void* k_pages,
                                           int n_pages, int page, int p_max, int n_split,
                                           int tbl_cap, float scale, int dtype, void* stream) {
   if (b == 0 || g == 0 || kh == 0) return cudaSuccess;
-  if (page < 1 || n_split < 1 || d < 1 || d > kMaxHeadDim || tbl_cap < 1)
-    return cudaErrorInvalidValue;
+  if (page < 1 || n_split < 1 || d < 1 || tbl_cap < 1) return cudaErrorInvalidValue;
   if (n_split > 1 && (workspace == nullptr || tickets == nullptr)) return cudaErrorInvalidValue;
   float* part_o = static_cast<float*>(workspace);
   const size_t rows_all = (size_t)b * kh * g;
+  const int n_cc = d > kMaxHeadDim ? (d + kWideCols - 1) / kWideCols : 1;
   const PagedArgs a{q, k_pages, v_pages, static_cast<const int*>(tables),
                     static_cast<const int*>(lengths), out, part_o,
                     part_o ? part_o + rows_all * n_split * d : nullptr,
-                    static_cast<int*>(tickets), kh, g, g, d, n_pages, page, p_max, n_split,
-                    tbl_cap, 0, scale};
-  LaunchOp op{a, b, static_cast<cudaStream_t>(stream)};
+                    static_cast<int*>(tickets), n_cc, kh, g, g, d, n_pages, page, p_max,
+                    n_split, tbl_cap, 0, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > kMaxHeadDim) {
+    if (dtype == kF32) return launch_wide<float>(a, b, st);
+    if (dtype == kBF16) return launch_wide<__nv_bfloat16>(a, b, st);
+    return cudaErrorInvalidValue;
+  }
+  LaunchOp op{a, b, st};
   if (dtype == kF32) return with_instance<float>(d, op);
   if (dtype == kBF16) return with_instance<__nv_bfloat16>(d, op);
   return cudaErrorInvalidValue;

@@ -2,19 +2,23 @@
 
 Port of ``ray_tpu/models/transformer.py``: ``ModelConfig``,
 ``init_params``, ``forward``, ``loss_fn`` and ``make_train_step`` for one
-device (pp = sp = 1), dense MLP only. Parameters are a plain dict of
-tensors in the JAX package's stacked-layer layout (``blocks[name]`` has a
-leading layer axis), so ``params_from_jax`` carries the JAX package's
+device (pp = sp = 1), with the dense MLP or Switch-MoE layers
+(``models/moe.py``, one device), and the KV-cache inference path
+(``init_kv_cache``, ``forward_with_cache``) that ``llm/engine.py`` runs.
+Parameters are a plain dict of tensors in the JAX package's stacked-layer
+layout (``blocks[name]`` has a leading layer axis, and ``blocks["moe"]`` is
+a dict of such stacks), so ``params_from_jax`` carries the JAX package's
 weights straight across.
 
 On CUDA, attention runs through the port's flash kernels
 (``ops/flash_attention.py``, forward and backward), as ``_block`` does on a
-TPU; on the CPU it uses ``attention_reference``.
+TPU; on the CPU it uses ``attention_reference``. The KV-cache path attends
+in plain torch over the cache, as the reference does in XLA.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +27,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
-from ..ops.layers import apply_rope, attention_reference, rms_norm, rope_freqs, swiglu
+from ..ops.layers import (apply_rope, attention_reference, rms_norm, rope_freqs, rotate,
+                          swiglu)
+from . import moe as moe_mod
 
 
 @dataclass(frozen=True)
@@ -36,7 +42,8 @@ class ModelConfig:
     d_ff: int = 1408
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
-    n_experts: int = 0  # the port has the dense MLP only (see _check_dense)
+    n_experts: int = 0  # 0 = dense MLP; >0 = Switch-MoE every layer
+    expert_capacity_factor: float = 1.25
     dtype: torch.dtype = torch.bfloat16
     # recompute each block in the backward pass (torch.utils.checkpoint),
     # as the JAX package's jax.checkpoint over the scanned block
@@ -47,20 +54,11 @@ class ModelConfig:
         return self.d_model // self.n_heads
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "ray_tpu_torch ports the dense MLP only; the MoE layers "
-            "(ray_tpu/models/moe.py) wait for a later slice"
-        )
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Stacked-layer parameter dict, drawn from ``generator`` (on the
     generator's own device, then moved), so one CPU generator gives the
     same weights for every target device."""
-    _check_dense(cfg)
     device = resolve_device(device)
     d, hd, L, dt = cfg.d_model, cfg.head_dim, cfg.n_layers, cfg.dtype
 
@@ -80,10 +78,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "wk": dense_init(L, d, cfg.n_kv_heads * hd),
         "wv": dense_init(L, d, cfg.n_kv_heads * hd),
         "wo": dense_init(L, cfg.n_heads * hd, d),
-        "w_gate": dense_init(L, d, cfg.d_ff),
-        "w_up": dense_init(L, d, cfg.d_ff),
-        "w_down": dense_init(L, cfg.d_ff, d),
     }
+    if cfg.n_experts > 0:
+        blocks["moe"] = moe_mod.init_moe(cfg.n_experts, d, cfg.d_ff, L, generator, dt,
+                                         device)
+    else:
+        blocks["w_gate"] = dense_init(L, d, cfg.d_ff)
+        blocks["w_up"] = dense_init(L, d, cfg.d_ff)
+        blocks["w_down"] = dense_init(L, cfg.d_ff, d)
     return {
         "embed": dense_init(cfg.vocab_size, d, scale=0.02),
         "blocks": blocks,
@@ -105,7 +107,8 @@ def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     """The JAX package's parameter pytree, given as (nested dicts of)
-    numpy arrays, as the port's dict of tensors on ``device``."""
+    numpy arrays, as the port's dict of tensors on ``device``; nested dicts
+    (an MoE model's ``blocks["moe"]``) keep their nesting."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
@@ -126,9 +129,26 @@ def param_leaves(tree: Dict[str, Any]) -> List[torch.Tensor]:
             (param_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
 
 
-def layer(blocks: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
-    """One layer's weights out of the stacked ``blocks`` dict."""
-    return {k: v[li] for k, v in blocks.items()}
+def layer(blocks: Dict[str, Any], li: int) -> Dict[str, Any]:
+    """One layer's weights out of the stacked ``blocks`` dict (nested dicts
+    kept)."""
+    return {k: layer(v, li) if isinstance(v, dict) else v[li] for k, v in blocks.items()}
+
+
+def _unbind_layers(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer's weights, one ``unbind`` per stacked tensor: its
+    backward stacks the layers' gradients once, where indexing layer by
+    layer would write a full-size zero gradient per layer."""
+    parts = {k: _unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in blocks.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _mlp(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    if cfg.n_experts > 0:
+        return moe_mod.moe_apply(p["moe"], x, cfg.expert_capacity_factor)
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def _block(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
@@ -148,31 +168,97 @@ def _block(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
         attn = attention_reference(q, k, v, causal=True)
     h = h + attn.reshape(b, t, -1) @ p["wo"]
     x = rms_norm(h, p["ln2"])
-    return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    return h + _mlp(cfg, p, x)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits [B, T, V] (f32) for int tokens [B, T] on their device. One
     device only: the JAX package's pp/sp paths wait for the parallelism
     slice."""
-    _check_dense(cfg)
     t = tokens.shape[1]
     h = params["embed"][tokens].to(cfg.dtype)
     angles = rope_freqs(cfg.head_dim, t, cfg.rope_theta, device=h.device)
-    blocks = params["blocks"]
-    # one unbind per weight: its backward stacks the layers' gradients once,
-    # where indexing layer by layer would write a full-size zero gradient
-    # per layer
-    names = sorted(blocks)
-    per_layer = zip(*(blocks[k].unbind(0) for k in names))
-    for weights in per_layer:
-        p = dict(zip(names, weights))
+    for p in _unbind_layers(params["blocks"]):
         if cfg.remat:
             h = checkpoint(_block, cfg, p, h, angles, use_reentrant=False)
         else:
             h = _block(cfg, p, h, angles)
     h = rms_norm(h, params["ln_f"])
     return (h @ params["head"]).float()
+
+
+# ---------------------------------------------------------------------------
+# KV-cache inference path (prefill and single-token decode), the engine core
+# of llm/engine.py. Cache layout: {"k", "v"}: [L, B, S_max, KH, hd].
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    device = resolve_device(device)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+    }
+
+
+def _block_with_cache(cfg: ModelConfig, p: Dict[str, Any], h: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      positions: torch.Tensor, seq_mask: torch.Tensor,
+                      cos: torch.Tensor, sin: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One block over ``h`` [B, T, D] writing K/V into one layer's cache
+    ([B, S_max, KH, hd], in place) at each token's position, padded prompt
+    positions included, then attending over the cache with a position mask.
+
+    positions: int [B, T] absolute position of each input token.
+    seq_mask: bool [B, S_max] which cache slots are valid after this write.
+    cos, sin: [B, T, 1, hd/2] each token's rope rotation at its position.
+    """
+    b, t, _ = h.shape
+    hd = cfg.head_dim
+    x = rms_norm(h, p["ln1"])
+    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+    q = rotate(q, cos, sin)
+    k = rotate(k, cos, sin)
+    bidx = torch.arange(b, device=h.device)[:, None].expand(b, t)
+    k_cache[bidx, positions] = k.to(k_cache.dtype)
+    v_cache[bidx, positions] = v.to(v_cache.dtype)
+    s_max = k_cache.shape[1]
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qh = q.reshape(b, t, cfg.n_kv_heads, groups, hd)
+    scores = torch.einsum("bthgd,bshd->bhgts", qh.float(), k_cache.float()) / torch.sqrt(
+        torch.tensor(float(hd), device=h.device))
+    k_pos = torch.arange(s_max, device=h.device)
+    causal = k_pos[None, None, :] <= positions[:, :, None]  # [B, T, S]
+    valid = causal & seq_mask[:, None, :]
+    scores = scores.masked_fill(~valid[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("bhgts,bshd->bthgd", probs, v_cache.float()).to(h.dtype)
+    h = h + attn.reshape(b, t, -1) @ p["wo"]
+    x = rms_norm(h, p["ln2"])
+    return h + _mlp(cfg, p, x), k_cache, v_cache
+
+
+def forward_with_cache(params: Dict[str, Any], tokens: torch.Tensor,
+                       positions: torch.Tensor, cache: Dict[str, torch.Tensor],
+                       seq_mask: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(logits [B, T, V] f32, the cache). Used for both prefill (T = prompt
+    length) and decode (T = 1). Unlike the reference's functional arrays,
+    the cache is written in place and returned as given."""
+    h = params["embed"][tokens].to(cfg.dtype)
+    ang = rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                     device=h.device)[positions]  # [B, T, hd/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    for li in range(cfg.n_layers):
+        h, _, _ = _block_with_cache(cfg, layer(params["blocks"], li), h, cache["k"][li],
+                                    cache["v"][li], positions, seq_mask, cos, sin)
+    h = rms_norm(h, params["ln_f"])
+    return (h @ params["head"]).float(), cache
 
 
 def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

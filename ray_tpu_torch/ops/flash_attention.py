@@ -10,12 +10,13 @@ Port of ``ray_tpu/ops/flash_attention.py``, forward and backward.
 - ragged causal self-attention is zero-padded to the kernel's block and
   sliced back (exact: padded keys sit in every real query's masked future,
   padded query rows get dO = 0, and the pad's gradients are dropped);
-- a head_dim between the kernels' widths (32, 64, 128, 256) is
-  zero-padded to the next one and sliced back, with the softmax scale kept
-  at 1/sqrt(real head_dim) (exact: zero columns add exact zeros to Q.K^T,
-  the padded columns of O, dQ, dK and dV are zeros and are dropped, and
-  delta is unchanged); head_dim > 256 raises on CUDA. bf16 runs the wgmma
-  kernels up to 128 and the FMA kernels at 256;
+- a head_dim between the kernels' widths (32, 64, 128, 256, then every
+  multiple of 256) is zero-padded to the next one and sliced back, with
+  the softmax scale kept at 1/sqrt(real head_dim) (exact: zero columns add
+  exact zeros to Q.K^T, the padded columns of O, dQ, dK and dV are zeros
+  and are dropped, and delta is unchanged). bf16 runs the wgmma kernels up
+  to 128 and the FMA kernels at 256; above 256 both dtypes run the wide
+  FMA kernels, which walk head_dim in chunks of 256;
 - ragged non-causal input goes to ``attention_reference``, as in the JAX
   package. That is the documented contract, not a fallback for a failed
   launch: the wrappers' ``.launches`` counts show which branch ran.
@@ -55,6 +56,7 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 BLOCK_Q = 64
 BLOCK_K = 64
 _HEAD_DIMS = (32, 64, 128, 256)
+WIDE_CHUNK = 256  # above 256, head_dim is a multiple of this (kWideChunk in csrc/common.cuh)
 
 
 def _bind(source: str, name: str, n_ptrs: int):
@@ -89,9 +91,13 @@ def _scale(qg, scale):
 
 
 def _padded_head_dim(d: int) -> int:
-    """The kernel width that ``flash_attention`` pads head_dim ``d`` to (``d``
-    itself above 256, which the kernels refuse)."""
-    return next((w for w in _HEAD_DIMS if w >= d), d)
+    """The kernel width that ``flash_attention`` pads head_dim ``d`` to: the
+    next of 32, 64, 128, 256, and above 256 the next multiple of 256."""
+    return next((w for w in _HEAD_DIMS if w >= d), -(-d // WIDE_CHUNK) * WIDE_CHUNK)
+
+
+def _kernel_head_dim(d: int) -> bool:
+    return d in _HEAD_DIMS or (d > WIDE_CHUNK and d % WIDE_CHUNK == 0)
 
 
 def _scores(qg, kg, causal, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -139,11 +145,10 @@ def _check_inputs(qg, kg, vg):
         raise ValueError(
             f"flash_attention_forward: q {tuple(qg.shape)} vs k {tuple(kg.shape)}"
         )
-    if d not in _HEAD_DIMS:
+    if not _kernel_head_dim(d):
         raise ValueError(
-            f"flash_attention_forward takes head_dim in {_HEAD_DIMS}, got {d} "
-            f"(flash_attention pads head_dim up to {_HEAD_DIMS[-1]}; the kernels take no "
-            f"wider head)"
+            f"flash_attention_forward takes head_dim in {_HEAD_DIMS} or a multiple of "
+            f"{WIDE_CHUNK} above it, got {d} (flash_attention pads head_dim up to one)"
         )
     if t % BLOCK_Q or kg.shape[1] % BLOCK_K or kg.shape[1] == 0:
         raise ValueError(

@@ -10,8 +10,9 @@ source note there: memory bound, each sequence split over several blocks,
 pages streamed by cp.async through a shared-memory ring, the splits merged
 in a fixed order in the same launch) and takes
 ``paged_attention_reference``, the gather formulation, for CPU tensors.
-The kernel takes every head_dim from 1 to 256 and any number of query
-heads per KV head, in f32 and bf16. ``paged_attention_split_reference``
+The kernel takes every head_dim and any number of query heads per KV head,
+in f32 and bf16: up to 256 through its register-tiled instances, above 256
+through a plain wide instance that writes 256 output columns a block. ``paged_attention_split_reference``
 computes the kernel's split-and-combine algebra in plain torch.
 """
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 from .. import _cuda
 
 SOURCE = "paged_attention.cu"
-MAX_HEAD_DIM = 256  # csrc/paged_attention.cu kMaxHeadDim
+MAX_HEAD_DIM = 256  # csrc/paged_attention.cu kMaxHeadDim: wider heads take the wide kernel
+WIDE_COLS = 256  # output columns a block of the wide kernel writes (kWideCols)
 SHARE_ROUND = 16  # a split's share of the tokens is a multiple of this (kShareRound)
 BLOCKS_PER_SM = 1  # the split count aims at this many blocks per SM (flash_tiles.py paged)
 MAX_SPLIT_TOKENS = 2048  # and at no split longer than this many positions
@@ -113,10 +115,8 @@ def _check_inputs(q, k_pages, v_pages, block_tables, lengths, page_size):
         )
     if block_tables.dim() != 2 or block_tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_attention_decode: block_tables [B,P_max], lengths [B]")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"paged_attention_decode kernel takes head_dim 1..{MAX_HEAD_DIM}, got {d}"
-        )
+    if d < 1:
+        raise ValueError(f"paged_attention_decode: head_dim must be positive, got {d}")
     tensors = (q, k_pages, v_pages, block_tables, lengths)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_decode: inputs must be contiguous, on one device")
@@ -152,10 +152,11 @@ def paged_attention_decode(
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     workspace = tickets = None
+    n_cc = -(-d // WIDE_COLS) if d > MAX_HEAD_DIM else 1  # column chunks a row
     if n_split > 1:  # partial (o, m, l) per split, merged in the launch
-        workspace = torch.empty(b * kh * g * n_split * (d + 2), dtype=torch.float32,
+        workspace = torch.empty(b * kh * g * n_split * (d + 2 * n_cc), dtype=torch.float32,
                                 device=q.device)
-        tickets = _ticket_buffer(q.device, stream, b * kh * g)
+        tickets = _ticket_buffer(q.device, stream, b * kh * g * n_cc)
     err = _lib().ray_paged_attention_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),

@@ -157,10 +157,32 @@ def test_flash_backward_through_the_wrapper(cuda, d, dtype):
         assert a.dtype == dtype and _rel_err(a, b) <= BWD_TOL[dtype]
 
 
-def test_flash_head_dim_above_256_raises(cuda):
-    q = torch.zeros(1, 64, 2, 272, device=cuda)
-    with pytest.raises(ValueError, match="256"):
-        F.flash_attention(q, q, q, causal=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [272, 320, 512])
+def test_flash_wide_head_dims(cuda, dtype, d):
+    """head_dim above 256: padded to the next multiple of 256, the wide
+    kernels (head_dim walked in 256-column chunks) forward and backward
+    through flash_attention's autograd on the card against the same wrapper
+    on the CPU (plain versions), GQA and ragged causal T=100."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(1, 100, 4, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(1, 100, 2, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, 100, 2, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(1, 100, 4, d, generator=g, device=cuda).to(dtype)
+    outs, grads = [], []
+    before = (F.flash_attention_forward.launches, F.flash_attention_bwd_dq.launches,
+              F.flash_attention_bwd_dkv.launches)
+    for dev in (cuda, "cpu"):
+        xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        out = F.flash_attention(*xs, causal=True)
+        out.backward(do.to(dev))
+        outs.append(out.detach().cpu())
+        grads.append([x.grad.cpu() for x in xs])
+    assert (F.flash_attention_forward.launches, F.flash_attention_bwd_dq.launches,
+            F.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    assert _max_err(outs[0], outs[1]) <= (1e-4 if dtype == torch.float32 else 3e-2)
+    for a, b in zip(*grads):
+        assert a.dtype == dtype and _rel_err(a, b) <= BWD_TOL[dtype]
 
 
 def _paged_args(cuda, dtype, b, kh, g, d, n_pages, page, p_max, lengths, seed=0):
@@ -217,6 +239,22 @@ def test_paged_kernel_head_dims(cuda, dtype, d, g):
     masked (12, 20, 72, 160), and G from 1 to 16 (chunked over blocks)."""
     args = _paged_args(cuda, dtype, 4, 2, g, d, 48, 8, 9, [1, 16, 71, 40], seed=d + g)
     _paged_check(args, 8, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,g,p_max,lengths", [(272, 2, 9, [1, 16, 71, 40]),
+                                               (320, 4, 9, [1, 16, 71, 40]),
+                                               (512, 1, 126, [50, 1000, 49, 2]),
+                                               (600, 2, 126, [50, 1000, 49, 1])])
+def test_paged_wide_head_dims(cuda, dtype, d, g, p_max, lengths):
+    """head_dim above 256 (the wide kernel, 256 output columns a block,
+    the last chunk partial at 272, 320 and 600), split over blocks where
+    one slot is long; two launches give equal bits."""
+    args = _paged_args(cuda, dtype, 4, 2, g, d, 4 * p_max + 1, 8, p_max, lengths, seed=d)
+    first = _paged_check(args, 8, dtype)
+    second = P.paged_attention_decode(*args, page_size=8)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -49,16 +49,17 @@ def test_ragged_causal_pads():
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 
-@pytest.mark.parametrize("d", [80, 96, 160, 256])
+@pytest.mark.parametrize("d", [80, 96, 160, 256, 320])
 @pytest.mark.parametrize(
     "shape,causal",
     [((1, 128, 4, 2), True), ((2, 128, 4, 4), False), ((1, 100, 4, 2), True)],
 )
 def test_padded_head_dims_match_jax_kernel(d, shape, causal):
     """head_dim 80 and 96 (between the kernels' widths) are zero-padded to
-    128, and 160 to 256, and sliced back, the softmax scale kept at
-    1/sqrt(d); 256 is a kernel width itself: causal GQA 4->2, non-causal,
-    and ragged causal T=100 (padded in T as well)."""
+    128, 160 to 256 and 320 to 512 (the wide kernels' width on the card),
+    and sliced back, the softmax scale kept at 1/sqrt(d); 256 is a kernel
+    width itself: causal GQA 4->2, non-causal, and ragged causal T=100
+    (padded in T as well)."""
     want, got = both(*mk_qkv(12, *shape, d), causal)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2e-3)
@@ -66,8 +67,8 @@ def test_padded_head_dims_match_jax_kernel(d, shape, causal):
 
 def test_head_dim_pad_widths():
     assert [T._padded_head_dim(d) for d in (16, 32, 48, 64, 80, 96, 112, 128, 129, 160, 256,
-                                            272)] == [
-        32, 32, 64, 64, 128, 128, 128, 128, 256, 256, 256, 272]
+                                            272, 320, 512, 513, 1000)] == [
+        32, 32, 64, 64, 128, 128, 128, 128, 256, 256, 256, 512, 512, 512, 768, 1024]
 
 
 def test_ragged_noncausal_takes_reference():
@@ -141,14 +142,16 @@ def cos_loss(out, xp):
         ("D=96 ragged causal T=100", (1, 100, 4, 2, 96), True, cos_loss),
         ("D=160 GQA 4->2", (1, 128, 4, 2, 160), True, cos_loss),
         ("D=256 ragged causal T=100", (1, 100, 2, 2, 256), True, cos_loss),
+        ("D=320 GQA 4->2", (1, 128, 4, 2, 320), True, cos_loss),
+        ("D=320 ragged causal T=70", (1, 70, 2, 2, 320), True, lambda o, xp: (o**2).sum()),
     ],
 )
 def test_grads_match_jax_kernel(name, shape, causal, loss):
     """The cases of tests/test_flash_attention.py's backward tests, at the
     reference's own tolerance (atol 5e-3): dk/dv sum over GQA groups and
     the ragged pad's gradients are dropped. head_dim 80 and 96 are padded to
-    128, and 160 to 256, with the scale kept at 1/sqrt(real head_dim); the
-    pad's gradients are dropped too."""
+    128, 160 to 256 and 320 to 512, with the scale kept at 1/sqrt(real
+    head_dim); the pad's gradients are dropped too."""
     want, got = grads_both(*mk_qkv(8, *shape), causal, loss)
     for w, g, n in zip(want, got, "qkv"):
         assert g.shape == w.shape
@@ -159,7 +162,7 @@ def test_grads_match_jax_kernel(name, shape, causal, loss):
                                               (torch.bfloat16, 2**-7, 3e-2)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t,s", [(128, 128), (128, 256)])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 128, 512])
 def test_backward_reference_matches_pallas_bwd(dtype, rtol, atol, causal, t, s, d):
     """flash_attention_backward_reference against the Pallas backward
     (_flash_grouped_bwd, interpret mode) on the grouped layout, given the
@@ -169,7 +172,9 @@ def test_backward_reference_matches_pallas_bwd(dtype, rtol, atol, causal, t, s, 
     (|x| up to ~8 here) are rounded to bf16: two bf16 ulps of the value
     (rtol 2**-7) plus atol 3e-2. S > T covers the keys no query sees.
     head_dim 128 is the train shape's, where the scale 1/sqrt(128) is not
-    a power of two, so q * scale rounds (a rounding point both keep)."""
+    a power of two, so q * scale rounds (a rounding point both keep); 512
+    is a width of the wide kernels, which walk head_dim in 256-column
+    chunks on the card."""
     rng = np.random.default_rng(9)
     qg, do = (rng.standard_normal((3, t, d), dtype=np.float32) for _ in range(2))
     kg, vg = (rng.standard_normal((3, s, d), dtype=np.float32) for _ in range(2))
@@ -239,8 +244,10 @@ def test_kernel_input_checks(shape_q, shape_k, dtype):
 
 
 def test_head_dim_above_256_is_refused_naming_the_limit():
-    """head_dim 272 reaches the kernels unpadded and is refused with the
-    widths they take; 256 is taken."""
-    T._check_inputs(*(torch.zeros(2, 128, 256) for _ in range(3)))
+    """head_dim 272 reaches the kernels unpadded and is refused naming the
+    widths they take (flash_attention pads it to 512); 256 and the
+    multiples of 256 above it are taken."""
+    for d in (256, 512, 768):
+        T._check_inputs(*(torch.zeros(2, 128, d) for _ in range(3)))
     with pytest.raises(ValueError, match="256"):
         T._check_inputs(*(torch.zeros(2, 128, 272) for _ in range(3)))

@@ -87,8 +87,8 @@ def test_kernel_input_checks(bad):
         tables = tables.long()
     elif bad == "pool_page":
         page = 8
-    elif bad == "head_dim":  # wider than the kernel's 256
-        q, pool = torch.zeros(2, 2, 2, 272), torch.zeros(2, 8, 16, 272)
+    elif bad == "head_dim":  # not a head_dim at all (every positive one is taken)
+        q, pool = torch.zeros(2, 2, 2, 0), torch.zeros(2, 8, 16, 0)
     else:
         q, pool = q.half(), pool.half()
     with pytest.raises((ValueError, TypeError)):
@@ -97,10 +97,12 @@ def test_kernel_input_checks(bad):
 
 
 @pytest.mark.parametrize("g,d", [(2, 16), (2, 80), (4, 112), (16, 128), (64, 16), (1, 1),
-                                 (4, 12), (8, 255), (2, 256)])
+                                 (4, 12), (8, 255), (2, 256), (2, 272), (4, 320), (1, 512),
+                                 (2, 1000)])
 def test_kernel_takes_head_widths(g, d):
-    """Every head_dim from 1 to 256, at any G (the kernel chunks a head's
-    query rows over blocks)."""
+    """Every head_dim, at any G (the kernel chunks a head's query rows over
+    blocks; above 256 the wide kernel takes one row and 256 columns a
+    block)."""
     q = torch.zeros(2, 2, g, d)
     pool = torch.zeros(2, 8, 16, d)
     T._check_inputs(q, pool, pool, torch.zeros(2, 4, dtype=torch.int32),
@@ -177,3 +179,12 @@ def test_split_shares_and_plan():
     finally:
         T._lib = saved
         T.plan.cache_clear()
+
+
+@pytest.mark.parametrize("d,g", [(320, 2), (512, 1), (300, 4)])
+def test_wide_heads_match_jax(d, g):
+    """head_dim above 256 (the wide kernel's widths on the card): the plain
+    version against the Pallas kernel in interpret mode."""
+    q, kp, vp, tables, _ = _setup(b=3, kh=2, g=g, d=d, n_pages=24, page=8, p_max=6, seed=d)
+    want, got = both(q, kp, vp, tables, [48, 1, 25], 8)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)

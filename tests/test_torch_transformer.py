@@ -82,10 +82,21 @@ def test_init_params_layout_matches_jax():
     assert not torch.equal(pt["head"], other["head"])
 
 
-def test_moe_config_is_refused():
-    _, ct = configs(jnp.float32, torch.float32, n_experts=4)
-    with pytest.raises(NotImplementedError):
-        T.init_params(ct, torch.Generator().manual_seed(0), device="cpu")
+def test_moe_config_builds_and_carries_across():
+    """An MoE config builds its own weights in the reference's layout, and
+    the JAX package's carry across (the nested blocks["moe"] dict) and give
+    its logits."""
+    cj, ct = configs(jnp.float32, torch.float32, n_experts=4)
+    pj = jax_params(cj, 0)
+    own = T.init_params(ct, torch.Generator().manual_seed(0), device="cpu")
+    assert set(own["blocks"]) == set(pj["blocks"])
+    assert {k: tuple(v.shape) for k, v in own["blocks"]["moe"].items()} == {
+        k: v.shape for k, v in pj["blocks"]["moe"].items()}
+    pt = T.params_from_jax(pj, device="cpu")
+    tok = np.random.default_rng(0).integers(0, cj.vocab_size, (2, 12)).astype(np.int32)
+    want = np.asarray(J.forward(jax.tree.map(jnp.asarray, pj), jnp.asarray(tok), cj))
+    got = T.forward(pt, torch.from_numpy(tok).long(), ct)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
 def test_entry_points_raise_without_cuda():
