@@ -37,6 +37,17 @@ passes or exits non-zero:
    of ``make_train_step`` on one batch (flash launches counted from zero):
    the loss must be finite and fall; then checks an f32 ``ModelConfig()``
    loss and every gradient on the card against the CPU's plain path;
+5a. parallelism (``ray_tpu_torch/parallel/``): the mesh path over NCCL on
+   ``MeshConfig.auto(device_count())`` ranks, one per card, each training
+   bench.py's configuration (remat, bf16, B=8 a dp rank, T=1024, Adam) for
+   a few steps of ``make_train_step(cfg, opt, mesh)`` (flash launches
+   counted from zero: 2·layers·microbatches forward and layers·microbatches
+   dQ and dK/dV a step on each rank), ms/step and tokens/s beside phase
+   5's; an f32 ``ModelConfig()`` step through the mesh path at
+   ``local_mesh()`` against the plain ``make_train_step``, loss and every
+   gradient within 1e-6; then ``dryrun_multichip(8, "cpu")`` on 8 gloo
+   ranks, its first-step losses equal to the single-process CPU
+   ``loss_fn`` within 1e-5;
 5b. head_dim above 256: ``flash_attention`` at 320 (padded to 512) and the
    grouped kernels at 512, forward, dQ and dK/dV, and the paged kernel at
    320 and 512 (one slot split over blocks, two launches bit-equal), f32
@@ -195,6 +206,7 @@ from ray_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention_decode,
     paged_attention_reference,
 )
+from ray_tpu_torch.parallel import MeshConfig, dryrun, launch, local_mesh  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -941,6 +953,110 @@ def phase_train_f32() -> None:
           f"{errs[worst]:.2e} ({names[worst]}; tol 1e-4) over the loss and "
           f"{len(errs) - 1} gradient leaves")
     check(max(errs) <= 1e-4, f"f32 train step card vs CPU: {errs}")
+
+
+# ---------------------------------------------------------------------------
+# 5a. parallelism
+# ---------------------------------------------------------------------------
+def parallel_nccl_train(train_ms: float, train_tps: float, steps: int = 6) -> dict:
+    """bench.py's train configuration through the mesh path, one NCCL rank
+    per card, each rank a process of ``parallel.launch``."""
+    mesh_cfg = MeshConfig.auto(torch.cuda.device_count())
+    cfg = tfm.ModelConfig(**TRAIN_CFG)
+    run = dryrun.Run(mesh_cfg, cfg, batch=8 * mesh_cfg.dp, seq=1023)
+    res = launch(dryrun.train_rank, mesh_cfg.size, ([run], None, "adam", 3e-4, steps + 1),
+                 timeout=600)
+    m = run.num_microbatches
+    local = 1 if mesh_cfg.pp == 1 else (m // mesh_cfg.dp if m % mesh_cfg.dp == 0
+                                        else math.gcd(m, 8))
+    passes = cfg.n_layers // mesh_cfg.pp * local * steps  # layer passes a rank makes
+    tps = run.batch * run.seq / (res[0][0]["step_ms"] / 1e3)
+    print(f"parallel NCCL {mesh_cfg} ({mesh_cfg.size} ranks) bench.py config B={run.batch} "
+          f"T={run.seq + 1} Adam(3e-4) on {'; '.join(card_line().splitlines())}: first step "
+          f"{res[0][0]['first_ms']:.1f} ms, then {res[0][0]['step_ms']:.2f} ms/step over "
+          f"{steps} steps = {tps:.1f} tokens/s (plain path, phase 5: {train_ms:.2f} ms/step, "
+          f"{train_tps:.1f} tokens/s)")
+    for r, [out] in enumerate(res):
+        losses = out["losses"]
+        print(f"parallel rank {r} losses {['%.4f' % x for x in losses]}; launches over "
+              f"{steps} steps: flash fwd {out['launches']['fwd']}, dq {out['launches']['dq']}, "
+              f"dkv {out['launches']['dkv']}")
+        check(all(math.isfinite(x) for x in losses), f"rank {r}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"rank {r}: loss did not fall: {losses}")
+        check(out["launches"] == dict(fwd=2 * passes, dq=passes, dkv=passes),
+              f"rank {r} launches {out['launches']}, expected fwd {2 * passes}, "
+              f"dq/dkv {passes}")
+    return dict(res[0][0]["launches"], step_ms=res[0][0]["step_ms"], tps=tps)
+
+
+def parallel_local_mesh() -> float:
+    """f32 ModelConfig(): one step through the mesh path at local_mesh()
+    against the plain make_train_step from the same parameters; returns
+    the largest difference of the loss and the gradients."""
+    cfg = tfm.ModelConfig(dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (2, 257),
+                        generator=torch.Generator().manual_seed(46)).to(DEV)
+    got = []
+    for mesh in (None, local_mesh()):
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(47), DEV)
+        leaves = [x.requires_grad_() for x in tfm.param_leaves(params)]
+        opt = torch.optim.SGD(leaves, lr=1e-3)
+        grads = []
+        opt.register_step_pre_hook(lambda *_: grads.extend(x.grad.clone() for x in leaves))
+        loss = tfm.make_train_step(cfg, opt, mesh)(params, tok)
+        got.append([loss] + grads)
+    names = ["loss"] + leaf_names(params)
+    errs = [max_err(a, b) for a, b in zip(*got)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    print(f"parallel local_mesh() f32 ModelConfig() B=2 T=257 mesh path vs plain path: loss "
+          f"{got[1][0].item():.6f} vs {got[0][0].item():.6f}, largest difference "
+          f"{errs[worst]:.3e} ({names[worst]}; tol 1e-6) over the loss and "
+          f"{len(errs) - 1} gradient leaves")
+    check(max(errs) <= 1e-6, f"mesh path at local_mesh() vs plain path: {errs}")
+    return errs[worst]
+
+
+def single_process_loss(run: "dryrun.Run", params, tokens) -> float:
+    """The CPU loss_fn of one process. On a mesh with sp > 1 an MoE layer
+    routes each sp shard of the sequence alone (capacity and positions
+    counted within it, over the whole batch), as the reference does inside
+    its sp shard_map, so here each slice of the sequence goes through
+    moe_apply alone."""
+    moe_apply, sp = tfm.moe_mod.moe_apply, run.mesh.sp
+
+    def per_shard(p, x, *args):
+        return torch.cat([moe_apply(p, c, *args) for c in x.chunk(sp, dim=1)], dim=1)
+
+    tfm.moe_mod.moe_apply = per_shard
+    try:
+        with torch.no_grad():
+            return tfm.loss_fn(params, tokens, run.model).item()
+    finally:
+        tfm.moe_mod.moe_apply = moe_apply
+
+
+def parallel_gloo_dryrun() -> None:
+    """The reference's 8-device dry run on 8 gloo ranks of this machine's
+    CPU, each first-step loss against the single-process CPU loss_fn."""
+    t0 = time.perf_counter()
+    results = dryrun.dryrun_multichip(8, "cpu")
+    for run, res in zip(dryrun.runs(8), results):
+        want = single_process_loss(run, *dryrun.inputs(run, "cpu"))
+        err = abs(res["losses"][0] - want)
+        print(f"parallel gloo dry run {run.mesh}: loss {res['losses'][0]:.6f}, single process "
+              f"{want:.6f}, difference {err:.2e} (tol 1e-5)")
+        check(err <= 1e-5, f"gloo dry run {run.mesh}: {res['losses'][0]} vs {want}")
+    print(f"parallel gloo dry run: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_parallel(train_ms: float, train_tps: float) -> dict:
+    t0 = time.perf_counter()
+    out = parallel_nccl_train(train_ms, train_tps)
+    out["local_mesh_err"] = parallel_local_mesh()
+    parallel_gloo_dryrun()
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3760,6 +3876,7 @@ def main() -> None:
     paged_launches, tps = phase_serve()
     train_launches, step_ms, train_tps = phase_train()
     phase_train_f32()
+    par = phase_parallel(step_ms, train_tps)
     wide_rows = phase_wide_heads()
     llm = phase_llm_engine()
     disagg = phase_llm_disagg()
@@ -3782,17 +3899,21 @@ def main() -> None:
         dict(name="flash_attention_fwd", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",
-             launches=flash_launches, **flash_row, wide_shape=wide_rows["fwd"]),
+             launches=flash_launches, **flash_row, wide_shape=wide_rows["fwd"],
+             mesh_launches=par["fwd"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:230",
-             launches=train_launches["dq"], **bwd_rows["dq"], wide_shape=wide_rows["dq"]),
+             launches=train_launches["dq"], **bwd_rows["dq"], wide_shape=wide_rows["dq"],
+             mesh_launches=par["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:247",
-             launches=train_launches["dkv"], **bwd_rows["dkv"], wide_shape=wide_rows["dkv"]),
+             launches=train_launches["dkv"], **bwd_rows["dkv"], wide_shape=wide_rows["dkv"],
+             mesh_launches=par["dkv"]),
     ]
     print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s; "
+          f"mesh train {par['step_ms']:.2f} ms/step, {par['tps']:.1f} tokens/s; "
           f"LLMEngine decode {llm['tps']:.1f} tokens/s (MoE {llm['moe_tps']:.1f}); hand-off "
           f"extract/seal/land {disagg['extract_ms']:.2f}/{disagg['seal_ms']:.2f}/"
           f"{disagg['land_ms']:.2f} ms")

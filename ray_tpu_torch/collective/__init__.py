@@ -7,9 +7,11 @@ allreduce/broadcast/allgather/reducescatter/send/recv with barrier
 semantics identical to the reference API.
 
 Port of ``ray_tpu/collective/``, copied with its imports rewritten: the
-host-level groups only. The reference's in-program plane is XLA
-collectives inside jit; the port's is ``torch.distributed`` (NCCL on the
-card), which comes with the parallelism slice (ROADMAP Queue A item 8).
+host-level groups. The reference's in-program plane is XLA collectives
+inside jit; the port's is ``ray_tpu_torch.parallel``: one process per rank
+(``parallel.launch``), a mesh with a ``torch.distributed`` group per axis
+(``parallel.mesh``; NCCL on the card, gloo on the CPU) and differentiable
+collectives over it (``parallel.collectives``).
 """
 from .collective import (  # noqa: F401
     allgather,

@@ -3,7 +3,7 @@
 The reference's host collectives are NCCL/Gloo process groups
 (Ray's python/ray/util/collective/collective_group/). The
 *data-plane* collectives run inside the device program (NCCL for the
-port, with the parallelism slice); what remains is a host-level rendezvous across worker processes/hosts — here built on a named
+port: ``ray_tpu_torch.parallel``); what remains is a host-level rendezvous across worker processes/hosts — here built on a named
 rendezvous actor reachable from every process in the cluster (DCN traffic
 rides the same gRPC object plane as everything else).
 

@@ -1,10 +1,20 @@
-"""Switch-style Mixture-of-Experts on one device.
+"""Switch-style Mixture-of-Experts, with expert parallelism over ``tp``.
 
-Port of ``init_moe`` and ``moe_apply`` from ``ray_tpu/models/moe.py``:
-top-1 routing with capacity dropping (Switch Transformer) in the GShard
-dense-einsum formulation (one-hot dispatch and combine tensors, static
-shapes). Expert weight stacks carry a leading E axis. The expert-parallel
-sharding over ``tp`` (``moe_specs``) waits for the parallelism slice.
+Port of ``ray_tpu/models/moe.py``: top-1 routing with capacity dropping
+(Switch Transformer) in the GShard dense-einsum formulation (one-hot
+dispatch and combine tensors, static shapes). Expert weight stacks carry a
+leading E axis, sharded over the mesh's ``tp`` axis (``moe_specs``); the
+router is replicated.
+
+On a mesh, each ``tp`` rank runs its own experts on the tokens, which are
+the same on every ``tp`` rank, and the combine is a ``psum`` over ``tp``.
+The routing is the reference's over the batch it sees: in JAX ``dp`` is an
+automatic axis, so the capacity ``int(capacity_factor * n / e)`` and the
+positions inside each expert are taken over the global batch, rows in
+order across the ``dp`` ranks. So with ``batch_axis="dp"`` the port counts
+n over ``dp`` and offsets each rank's positions by the tokens the lower
+``dp`` ranks sent to each expert (one ``all_gather`` of E counts); a token
+is then dropped exactly where the reference drops it.
 
 Points held to the reference: the capacity is ``int(capacity_factor * n /
 e)`` (at least 1); the position inside an expert is an f32 ``cumsum`` of
@@ -14,10 +24,13 @@ reference runs them through XLA, with no Pallas kernel).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import copy_to, gather, psum
+from ..parallel.mesh import Mesh
 
 
 def init_moe(n_experts: int, d_model: int, d_ff: int, n_layers: int,
@@ -40,14 +53,28 @@ def init_moe(n_experts: int, d_model: int, d_ff: int, n_layers: int,
     }
 
 
-def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              capacity_factor: float = 1.25) -> torch.Tensor:
+def moe_specs(lp: Optional[str]) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Experts sharded over tp (the expert-parallel axis); router
+    replicated. ``lp`` shards the layer axis (``"pp"`` when pipelined)."""
+    return {
+        "router": (lp, None, None),
+        "w_gate": (lp, "tp", None, None),
+        "w_up": (lp, "tp", None, None),
+        "w_down": (lp, "tp", None, None),
+    }
+
+
+def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, capacity_factor: float = 1.25,
+              mesh: Optional[Mesh] = None, batch_axis: Optional[str] = None) -> torch.Tensor:
     """x: [B, T, D] -> [B, T, D], one layer's ``p`` (router [D, E], experts
-    [E, D, F] and [E, F, D])."""
+    [E, D, F] and [E, F, D]; on a mesh, this ``tp`` rank's E/tp experts).
+    ``batch_axis`` names the mesh axis that x's batch is sharded over when
+    the routing is taken over the whole batch."""
     b, t, d = x.shape
-    n = b * t
     e = p["router"].shape[-1]
-    cap = max(1, int(capacity_factor * n / e))
+    n_ranks = mesh.size(batch_axis) if mesh is not None and batch_axis else 1
+    n = b * t
+    cap = max(1, int(capacity_factor * (n * n_ranks) / e))
     xf = x.reshape(n, d)
 
     logits = xf.float() @ p["router"].float()
@@ -55,11 +82,19 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     gate = probs.amax(dim=-1)                         # [N]
     expert = torch.argmax(probs, dim=-1)              # [N]
     onehot = F.one_hot(expert, e).float()             # [N, E]
-    pos = torch.cumsum(onehot, dim=0) * onehot - 1.0  # position within expert
+    pos = torch.cumsum(onehot, dim=0)
+    if n_ranks > 1:  # the tokens lower batch ranks sent to each expert come first
+        counts = gather(pos[-1:], mesh, batch_axis, 0)  # [ranks, E]
+        pos = pos + counts[:mesh.index(batch_axis)].sum(dim=0)
+    pos = pos * onehot - 1.0                          # position within expert
     keep = (pos >= 0) & (pos < cap)
     pos_clipped = pos.clamp(0, cap - 1).long()
     # dispatch[n, e, c]: the GShard dense dispatch tensor
     dispatch = (onehot * keep)[:, :, None] * F.one_hot(pos_clipped, cap).float()
+    if mesh is not None and mesh.size("tp") > 1:
+        local = p["w_gate"].shape[0]
+        dispatch = dispatch.narrow(1, mesh.index("tp") * local, local)
+        xf, gate = copy_to(xf, mesh, "tp"), copy_to(gate, mesh, "tp")
     combine = dispatch * gate[:, None, None]
 
     xin = torch.einsum("nec,nd->ecd", dispatch, xf.float()).to(x.dtype)
@@ -67,4 +102,6 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     u = torch.einsum("ecd,edf->ecf", xin, p["w_up"])
     y = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])
     out = torch.einsum("nec,ecd->nd", combine, y.float())
+    if mesh is not None:
+        out = psum(out, mesh, "tp")
     return out.to(x.dtype).reshape(b, t, d)

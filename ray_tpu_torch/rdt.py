@@ -13,9 +13,11 @@ transports, as the port has them:
    module implements that: raw dtype/shape header + buffer bytes staged
    zero-copy through the node's shm store / DAG ring.
 3. **cross host** — the reference rides the ICI/DCN mesh inside jit. The
-   port's counterpart is ``torch.distributed`` (NCCL between cards),
-   which comes with the parallelism slice (ROADMAP Queue A item 8); RDT
-   has no cross-host transport of its own until then.
+   port's counterpart is the in-program plane of ``ray_tpu_torch.parallel``
+   (``torch.distributed`` groups over a mesh, NCCL between cards): a
+   program launched on every rank moves tensors with its collectives
+   (``parallel.collectives``). RDT adds no API of its own for it, as the
+   reference adds none.
 
 ``put_tensor``/``get_tensor`` give the explicit API; the tensor codec is
 also used by compiled-DAG shm edges so tensors crossing a ring skip

@@ -106,6 +106,9 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "import ray_tpu_torch.llm, ray_tpu_torch.serve.prefix_cache\n"
         "import ray_tpu_torch.serve.admission, ray_tpu_torch.models.moe\n"
         "import ray_tpu_torch.llm.processor\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.dryrun\n"
+        "import ray_tpu_torch.parallel.programs, ray_tpu_torch.ops.pipeline\n"
+        "import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.ops.ulysses\n"
         "import torch\n"
         "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
         "from ray_tpu_torch.models import transformer as tfm\n"
@@ -116,6 +119,8 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "p = tfm.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
         "opt = torch.optim.AdamW([x.requires_grad_() for x in tfm.param_leaves(p)])\n"
         "tfm.make_train_step(cfg, opt)(p, torch.randint(0, 32, (1, 9)))\n"
+        "from ray_tpu_torch.parallel import local_mesh\n"
+        "tfm.make_train_step(cfg, opt, local_mesh('cpu'))(p, torch.randint(0, 32, (1, 9)))\n"
         "from ray_tpu_torch.llm import LLMEngine, GenerationConfig\n"
         "moe = tfm.ModelConfig(vocab_size=32, d_model=32, n_layers=1, n_heads=2,\n"
         "                      n_kv_heads=1, d_ff=64, n_experts=2, dtype=torch.float32)\n"
