@@ -48,6 +48,27 @@ passes or exits non-zero:
    gradient within 1e-6; then ``dryrun_multichip(8, "cpu")`` on 8 gloo
    ranks, its first-step losses equal to the single-process CPU
    ``loss_fn`` within 1e-5;
+5c. the training libraries (``ray_tpu_torch/train/``, ``tune/``):
+   ``TorchTrainer`` on the local runtime trains phase 5's configuration and
+   seeds in one worker for six steps, reports a checkpoint of the params
+   and the optimizer's state after step 3, fails after step 4 on its first
+   attempt (``FailureConfig(max_failures=1)``) and restores step 3: its six
+   losses must equal phase 5's first six bit for bit, every tensor of the
+   loop lie on the card, and the flash launches be those of 7 step runs;
+   checkpoint bytes, write and restore seconds printed. ``ElasticTrainer``
+   on ``Cluster()`` (bench.py's ``elastic_train_bench``: the head on the
+   card, two agents sharing it, a 2-rank STRICT_SPREAD gang, 4 virtual
+   shards, a seal every 2 steps) trains ``ModelConfig()`` bf16 for 40 steps
+   with Adam's moments sealed ZeRO-style; the node of rank 1 is killed at
+   step 13, a node joins after the shrink and the gang grows back: steps
+   0-39 contiguous, reshapes exactly a shrink 2->1 and a grow 1->2, no
+   disk restore, the final state, moments and every loss bit-equal to this
+   process's own run of the 40 steps, CUDA leaves sealed, flash launches
+   reported by the ranks; step rate before and after, retention, time to
+   detect the shrink and the seal's ms and bytes printed. A ``Tuner`` grid
+   of four learning rates under ASHA (max_t 8, grace 2, reduction 2) on
+   ``ModelConfig()``, B=4, T=512: every trial on the card, one stopped, the
+   best result the lowest last loss;
 5b. head_dim above 256: ``flash_attention`` at 320 (padded to 512) and the
    grouped kernels at 512, forward, dQ and dK/dV, and the paged kernel at
    320 and 512 (one slot split over blocks, two launches bit-equal), f32
@@ -920,7 +941,7 @@ def phase_train(steps: int = 6):
     device_profile(f"train step B={b} T={t}", lambda: step(params, tokens), 2)
     del params, leaves, opt, step
     torch.cuda.empty_cache()
-    return launches, step_ms, tps
+    return launches, step_ms, tps, losses
 
 
 def leaf_names(tree, prefix=""):
@@ -1057,6 +1078,420 @@ def phase_parallel(train_ms: float, train_tps: float) -> dict:
     print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# 5c. the training libraries: TorchTrainer, ElasticTrainer, Tune
+# ---------------------------------------------------------------------------
+def zero_launches() -> None:
+    flash_attention_forward.launches = 0
+    flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+
+
+def read_launches() -> dict:
+    return dict(fwd=flash_attention_forward.launches, dq=flash_attention_bwd_dq.launches,
+                dkv=flash_attention_bwd_dkv.launches)
+
+
+def trainer_loop(config):
+    """A worker's loop: bench.py's train step for six steps (phase 5's
+    seeds), a checkpoint after step 3 (params and the optimizer's state,
+    and the losses so far), and on the first attempt a failure after step 4."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import Checkpoint
+
+    ctx = train.get_context()
+    dev = torch.device(config["device"])
+    cfg = tfm.ModelConfig(**config["model"])
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(40), dev)
+    leaves = [x.requires_grad_() for x in tfm.param_leaves(params)]
+    opt = torch.optim.Adam(leaves, lr=3e-4)
+    step = tfm.make_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (config["batch"], config["seq"]),
+                           generator=torch.Generator(device=dev).manual_seed(41), device=dev)
+    restore = ctx.get_checkpoint()
+    losses, info = [], {}
+    timing = os.path.join(ctx.trial_dir, "checkpoint_write.json")
+    if restore is not None:
+        with open(timing) as f:
+            info.update(json.load(f))  # the first attempt's write
+        t0 = time.perf_counter()
+        state = restore.load_state()
+        with torch.no_grad():
+            for p, v in zip(leaves, tfm.param_leaves(state["params"])):
+                p.copy_(v)
+        opt.load_state_dict(state["opt"])
+        losses = list(state["losses"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        info["restore_s"] = time.perf_counter() - t0
+    for s in range(len(losses) + 1, 7):
+        t0 = time.perf_counter()
+        losses.append(step(params, tokens).item())  # the read waits for the step
+        step_s = time.perf_counter() - t0
+        ckpt = None
+        if s == 3:
+            t0 = time.perf_counter()
+            ckpt = Checkpoint.from_state(
+                {"params": params, "opt": opt.state_dict(), "losses": losses},
+                os.path.join(ctx.trial_dir, f"checkpoint_{s:06d}"))
+            info["write_s"] = time.perf_counter() - t0
+            info["bytes"] = sum(f.stat().st_size for f in os.scandir(ckpt.path))
+            with open(timing, "w") as f:
+                json.dump(info, f)
+        # Adam's step counts are host scalars by torch's design (not
+        # capturable); every tensor the step reads or writes is checked
+        held = leaves + [tokens] + [v for st in opt.state.values() for k, v in st.items()
+                                    if k != "step"]
+        train.report({"step": s, "loss": losses[-1], "losses": list(losses), "step_s": step_s,
+                      "on_device": all(x.device.type == dev.type for x in held),
+                      "restored": restore is not None, **info}, checkpoint=ckpt)
+        if s == 4 and restore is None:
+            raise RuntimeError("injected failure after step 4")
+
+
+def phase_trainer(want_losses, device: str = "cuda", model=None, batch: int = 8,
+                  seq: int = 1024) -> dict:
+    """``TorchTrainer`` on the local runtime with its scheduler on the card:
+    one worker trains bench.py's configuration (phase 5's seeds), fails
+    after step 4, restores step 3's checkpoint and runs steps 4-6. Its six
+    losses must equal phase 5's first six bit for bit."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.train import FailureConfig, RunConfig, ScalingConfig, TorchTrainer
+
+    _platform_env(device)
+    model = dict(TRAIN_CFG if model is None else model)
+    t0 = time.perf_counter()
+    storage = tempfile.mkdtemp(prefix="ray_tpu_torch_trainer_")
+    rtt.init(num_nodes=1, resources_per_node={"CPU": 4.0, "GPU": 1.0})
+    try:
+        zero_launches()
+        result = TorchTrainer(
+            trainer_loop,
+            train_loop_config=dict(model=model, device=device, batch=batch, seq=seq),
+            # a GPU lease exports CUDA_VISIBLE_DEVICES to the worker
+            scaling_config=ScalingConfig(num_workers=1,
+                                         resources_per_worker={"CPU": 1.0, "GPU": 1.0}),
+            run_config=RunConfig(name="phase-trainer", storage_path=storage,
+                                 failure_config=FailureConfig(max_failures=1)),
+        ).fit()
+        launches = read_launches()
+    finally:
+        rtt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    check(result.error is None, f"trainer: {result.error!r}")
+    hist = result.metrics_history
+    m = result.metrics
+    losses = m["losses"]
+    print(f"trainer TorchTrainer bench.py config B={batch} T={seq} on "
+          f"{'; '.join(card_line().splitlines())}: losses {['%.4f' % x for x in losses]}; "
+          f"checkpoint {m['bytes'] / 2**30:.3f} GiB written in {m['write_s']:.2f} s "
+          f"(attempt 1), restored in {m['restore_s']:.2f} s; steps 4-6 after the restore "
+          f"{', '.join('%.2f' % (h['step_s'] * 1e3) for h in hist)} ms; launches over 7 step runs: "
+          f"flash fwd {launches['fwd']}, dq {launches['dq']}, dkv {launches['dkv']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check([h["step"] for h in hist] == [4, 5, 6] and all(h["restored"] for h in hist),
+          f"trainer: the second attempt reported {[h['step'] for h in hist]}, not a restore "
+          f"of step 3 running steps 4-6")
+    check(all(h["on_device"] for h in hist), f"trainer: a tensor of the loop was off {device}")
+    same = [a == b for a, b in zip(losses, want_losses[:6])]
+    print(f"trainer losses against phase 5's first six: {sum(same)}/6 bit-equal")
+    check(len(losses) == 6 and all(same),
+          f"trainer losses {losses} differ from phase 5's {want_losses[:6]}")
+    layers = tfm.ModelConfig(**model).n_layers * 7
+    check(launches == dict(fwd=2 * layers, dq=layers, dkv=layers),
+          f"trainer launches {launches}, expected fwd {2 * layers}, dq/dkv {layers}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _median_rate(walls: dict, lo: int, hi: int) -> float:
+    """bench.py's elastic_train_bench: steps/s from the median step gap."""
+    deltas = sorted(d for d in (walls[s + 1] - walls[s] for s in range(lo, hi - 1)
+                                if s in walls and s + 1 in walls) if d > 0)
+    return 1.0 / deltas[len(deltas) // 2] if deltas else 0.0
+
+
+ELASTIC_CONFIG = dict(model=dict(dtype="bfloat16"), seed=60, batch=2, seq=512, lr=3e-4)
+
+
+def phase_elastic_train(device: str = "cuda", total_steps: int = 40, model=None) -> dict:
+    """bench.py's elastic_train_bench on the port's ``Cluster`` (the head on
+    the card, two agents sharing the card): a 2-rank STRICT_SPREAD gang of
+    ``ElasticTrainer`` trains ``ModelConfig()`` (bf16, Adam, its moments
+    sealed ZeRO-style over 4 virtual shards, a seal every 2 steps); the node
+    hosting rank 1 is killed at step total/3, a node joins once the shrink
+    has landed, and the gang grows back. The state, the moments and every
+    step's loss must equal this process's own run of the same steps bit for
+    bit, with no disk restore."""
+    import threading
+
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.train import ElasticConfig, ElasticTrainer, programs, pytree
+
+    _platform_env(device)
+    old_env = os.environ.get("RAY_TPU_HEALTH_TIMEOUT_S")
+    os.environ["RAY_TPU_HEALTH_TIMEOUT_S"] = "2.0"  # bench.py's
+    config = dict(ELASTIC_CONFIG, device=device)
+    if model is not None:
+        config["model"] = dict(model)
+    gpu = {"GPU": 1.0} if device == "cuda" else {}
+    # a node's arena holds its rank's seals (params and half the moments, 180
+    # MB at ModelConfig()) of the ~10 waves the driver keeps alive, as many
+    # buddy copies of the other rank's, and the hub's partials in flight
+    # (540 MB a step): ~4.5 GB, where the default arena is 256 MiB
+    node = dict(num_workers=2, store_capacity=8 << 30)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    import logging
+
+    # the driver's generation log (placements, drains, reshapes and why a
+    # rank broke) goes to this run's output
+    el_log = logging.getLogger("ray_tpu_torch.train.elastic")
+    el_handler = logging.StreamHandler(sys.stdout)
+    el_handler.setFormatter(logging.Formatter("elastic log %(relativeCreated).0f ms: %(message)s"))
+    el_log.addHandler(el_handler)
+    el_log.setLevel(logging.DEBUG)
+    c = _cluster(device)
+    stop_watch = threading.Event()
+
+    def watch(trainer):
+        """Every 20 s: the gang's progress and each node's arena use."""
+        while not stop_watch.wait(20.0):
+            arenas = []
+            for nid, rpc in list(c.head._clients.items()):
+                try:
+                    st = rpc.call("DebugState", timeout=10.0)["store"]
+                    arenas.append(f"{nid[:7]} {st.get('used', 0) / 2**20:.0f} MiB "
+                                  f"{st.get('num_objects')} objects")
+                except Exception as exc:  # noqa: BLE001 - a dead node
+                    arenas.append(f"{nid[:7]} {type(exc).__name__}")
+            print(f"elastic progress {trainer.progress()}: {'; '.join(arenas)}", flush=True)
+
+    try:
+        c.add_node({"CPU": 2.0, **gpu}, **node)
+        c.add_node({"CPU": 2.0, **gpu}, **node)
+        client = c.client()
+        set_runtime(client)
+        try:
+            trainer = ElasticTrainer(
+                programs.lm_init, programs.lm_step, total_steps=total_steps,
+                train_loop_config=config,
+                elastic_config=ElasticConfig(
+                    min_workers=1, max_workers=2, virtual_shards=4, seal_interval_steps=2,
+                    elastic_shard_rules=(r"^opt/",), grow=True,
+                    placement_strategy="STRICT_SPREAD",
+                    resources_per_worker={"CPU": 1.0, **gpu}))
+            box = {}
+
+            def fit():
+                try:
+                    box["res"] = trainer.fit()
+                except BaseException as exc:  # noqa: BLE001 - reported below
+                    box["exc"] = exc
+
+            th = threading.Thread(target=fit, name="elastic-fit")
+            th.start()
+            threading.Thread(target=watch, args=(trainer,), daemon=True,
+                             name="elastic-watch").start()
+            kill_at = max(6, total_steps // 3)
+            deadline = time.monotonic() + 300
+            while (trainer.progress()["step"] < kill_at and time.monotonic() < deadline
+                   and th.is_alive()):
+                time.sleep(0.1)
+            check("exc" not in box, f"elastic: fit raised {box.get('exc')!r}")
+            gangs = client.head.call("QueryState", {"kind": "gangs"})
+            victim = gangs.get(trainer.gang_id, {"members": {}})["members"].get("1")
+            check(bool(victim), f"elastic: no node for rank 1 ({gangs.get(trainer.gang_id)})")
+            t_kill = time.monotonic()
+            c.kill_node(victim)
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and th.is_alive():
+                if any(r["direction"] == "shrink" for r in trainer.reshape_log):
+                    break
+                time.sleep(0.2)
+            shrink_s = time.monotonic() - t_kill
+            c.add_node({"CPU": 2.0, **gpu}, **node)
+            th.join(timeout=600)
+            check(not th.is_alive(), "elastic: fit() did not finish")
+            check("exc" not in box, f"elastic: fit raised {box.get('exc')!r}")
+            res = box["res"]
+            check(res.error is None, f"elastic: {res.error!r}")
+            final = trainer.final_state()
+        finally:
+            set_runtime(None)
+            try:
+                client.shutdown()
+            except Exception:  # noqa: BLE001
+                pass
+    finally:
+        stop_watch.set()
+        el_log.removeHandler(el_handler)
+        c.shutdown()
+        errors.close()
+        if old_env is None:
+            os.environ.pop("RAY_TPU_HEALTH_TIMEOUT_S", None)
+        else:
+            os.environ["RAY_TPU_HEALTH_TIMEOUT_S"] = old_env
+    cluster_s = time.perf_counter() - t0
+    hist = res.metrics_history
+    el = res.metrics["elastic"]
+    reshapes = [(r["direction"], r["from_world"], r["to_world"]) for r in el["reshapes"]]
+    shrinks = [r for r in el["reshapes"] if r["direction"] == "shrink"]
+    grows = [r for r in el["reshapes"] if r["direction"] == "grow"]
+    walls = {m["step"]: m["wall"] for m in hist}
+    kill_step = shrinks[0]["resume_step"] if shrinks else kill_at
+    post = grows[-1]["resume_step"] + 1 if grows else kill_step + 1
+    rate_pre, rate_post = _median_rate(walls, 2, kill_step), _median_rate(walls, post, total_steps)
+    seal_bytes = max(m["seal_bytes"] for m in hist)
+    seal_ms = [m["seal_ms_sum"] / m["seals"] for m in hist if m["seals"]]
+    # each step's launches, per virtual shard, made by the rank that owned
+    # the shard and summed through the gang's own allreduce
+    gang_launches = {k: sum(row[k] for m in hist for row in m["launches"])
+                     for k in ("fwd", "dq", "dkv")}
+    # the same steps in this process, every shard's partial from the same
+    # kernels, summed in ascending shard order, then the same update
+    zero_launches()
+    t1 = time.perf_counter()
+    want, want_losses = programs.lm_reference(config, total_steps, 4)
+    launches = read_launches()
+    ref_s = time.perf_counter() - t1
+    got_leaves, want_leaves = pytree.leaves(final), pytree.leaves(want)
+    equal = sum(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got_leaves, want_leaves))
+    losses = [m["loss"] for m in hist]
+    print(f"elastic ElasticTrainer ModelConfig() bf16, 2 x STRICT_SPREAD ranks, 4 virtual "
+          f"shards x B={config['batch']} T={config['seq']}, {total_steps} steps on "
+          f"{'; '.join(card_line().splitlines())}: reshapes {reshapes}, disk restores "
+          f"{el['disk_restores']}; step rate {rate_pre:.3f}/s before the kill, "
+          f"{rate_post:.3f}/s after the grow-back, elastic_step_retention_pct "
+          f"{100.0 * rate_post / rate_pre if rate_pre else 0.0:.1f}; shrink detected "
+          f"{shrink_s:.2f} s after the kill; seals {seal_bytes / 2**20:.1f} MiB by the "
+          f"reporting rank, {np.mean(seal_ms) if seal_ms else 0.0:.1f} ms a seal; "
+          f"{cluster_s:.1f} s on the cluster")
+    print(f"elastic against one process ({ref_s:.1f} s; launches flash fwd {launches['fwd']}, "
+          f"dq {launches['dq']}, dkv {launches['dkv']}): {equal}/{len(want_leaves)} state leaves "
+          f"bit-equal, {sum(a == b for a, b in zip(losses, want_losses))}/{total_steps} losses "
+          f"bit-equal; first/last loss {losses[0]:.4f}/{losses[-1]:.4f}; the gang's own launches "
+          f"over the {len(hist)} steps kept: flash fwd {gang_launches['fwd']}, dq "
+          f"{gang_launches['dq']}, dkv {gang_launches['dkv']}")
+    errors.check("elastic train")
+    check([m["step"] for m in hist] == list(range(total_steps)),
+          f"elastic: steps {[m['step'] for m in hist]} are not 0..{total_steps - 1}")
+    check(el["disk_restores"] == 0, f"elastic: {el['disk_restores']} disk restores")
+    check(reshapes == [("shrink", 2, 1), ("grow", 1, 2)], f"elastic: reshapes {reshapes}")
+    check(len(got_leaves) == len(want_leaves) == equal,
+          f"elastic: {equal} of {len(want_leaves)} state leaves equal the one-process run")
+    check(losses == want_losses, f"elastic: losses {losses} vs one process {want_losses}")
+    check(losses[-1] < losses[0], f"elastic: loss did not fall {losses}")
+    check(seal_bytes > 0, f"elastic: the ranks sealed {seal_bytes} bytes")
+    check(device != "cuda" or all(m["copied_frames"] > 0 for m in hist if m["seals"]),
+          f"elastic: a rank that sealed wrote no CUDA frame: {[m['copied_frames'] for m in hist]}")
+    check(all(x.device.type == device for x in got_leaves),
+          f"elastic: a regathered leaf is not on {device}")
+    check(all(m["device"].startswith(device) for m in hist),
+          f"elastic: a rank trained off {device}: {sorted({m['device'] for m in hist})}")
+    n_layers = programs.model_config(config).n_layers
+    per_shard = [dict(fwd=n_layers, dq=n_layers, dkv=n_layers)] * 4
+    wrong = [(m["step"], m["world"], m["launches"]) for m in hist if m["launches"] != per_shard]
+    check(not wrong, f"elastic: steps whose shards did not each launch flash fwd, dq and dkv "
+          f"{n_layers} times (step, world, per shard): {wrong}")
+    passes = total_steps * 4 * n_layers
+    check(gang_launches == dict(fwd=passes, dq=passes, dkv=passes),
+          f"elastic gang launches {gang_launches}, expected {passes} each")
+    check(launches == dict(fwd=passes, dq=passes, dkv=passes),
+          f"elastic one-process launches {launches}, expected {passes} each")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def tune_trainable(config):
+    """One trial: ``ModelConfig()`` from the same seed at the trial's
+    learning rate, B=4, T=512, one Adam step an iteration."""
+    from ray_tpu_torch import tune
+
+    dev = torch.device(config["device"])
+    cfg = tfm.ModelConfig(**config.get("model", {}))
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(50), dev)
+    opt = torch.optim.Adam([x.requires_grad_() for x in tfm.param_leaves(params)],
+                           lr=config["lr"])
+    step = tfm.make_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512),
+                           generator=torch.Generator(device=dev).manual_seed(51), device=dev)
+    for it in range(8):
+        tune.report({"loss": step(params, tokens).item(), "iteration": it,
+                     "device": str(params["embed"].device)})
+
+
+def phase_tune(device: str = "cuda", model=None) -> dict:
+    """``Tuner`` over the card: a grid of four learning rates, 8 iterations
+    each, under ASHA (max_t 8, grace 2, reduction 2). The trials run one at
+    a time, so the flash launches they add are counted exactly, and ASHA's
+    decisions follow from the losses alone: each trial stops where a fresh
+    scheduler, handed the trials' losses in the same order, says STOP."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import tune
+
+    def asha():
+        return tune.ASHAScheduler(metric="loss", mode="min", max_t=8, grace_period=2,
+                                  reduction_factor=2)
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    rtt.init(num_nodes=1, resources_per_node={"CPU": 4.0, "GPU": 1.0})
+    try:
+        zero_launches()
+        grid = tune.Tuner(
+            tune_trainable,
+            param_space={"lr": tune.grid_search([1e-4, 3e-4, 1e-3, 3e-2]),
+                         "device": device, "model": dict(model or {})},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=1, scheduler=asha()),
+        ).fit()
+        launches = read_launches()
+    finally:
+        rtt.shutdown()
+    rows = [(r.config["lr"], r.status, len(r.metrics_history), r.metrics.get("loss"),
+             {m["device"] for m in r.metrics_history}) for r in grid]
+    best = grid.get_best_result()
+    lowest = min((r for r in grid if r.metrics), key=lambda r: r.metrics["loss"])
+    its = sum(len(r.metrics_history) for r in grid)
+    replay, want = asha(), {}
+    for r in grid:
+        state = tune.tuner._TrialState(trial_id=r.trial_id, config={})
+        want[r.config["lr"]] = next(
+            (it for it, m in enumerate(r.metrics_history, 1)
+             if replay.on_result(state, m["loss"], it, it - 1) == "STOP"),
+            len(r.metrics_history))
+    print(f"tune ASHA over lr {[r[0] for r in rows]} on {'; '.join(card_line().splitlines())}: "
+          + "; ".join(f"lr {lr:g} {st} after {n} iterations, last loss {loss:.4f}"
+                      for lr, st, n, loss, _ in rows)
+          + f"; best lr {best.config['lr']:g}; launches flash fwd {launches['fwd']}, dq "
+          f"{launches['dq']}, dkv {launches['dkv']}; {time.perf_counter() - t0:.1f} s")
+    print("tune losses by lr: " + "; ".join(
+        f"{r.config['lr']:g} " + " ".join(f"{m['loss']:.4f}" for m in r.metrics_history)
+        for r in grid))
+    check(all(r.error is None for r in grid), f"tune: {[r.error for r in grid]}")
+    check(all(devs and all(d.startswith(device) for d in devs) for *_, devs in rows),
+          f"tune: a trial ran off {device}: {rows}")
+    check(any(st == "STOPPED" for _, st, *_ in rows), f"tune: ASHA stopped no trial: {rows}")
+    got = {lr: n for lr, _, n, *_ in rows}
+    check(got == want, f"tune: iterations by lr {got}, where ASHA on the same losses stops "
+          f"at {want}")
+    check(got[3e-2] < 8 and all(got[lr] == 8 for lr in (1e-4, 3e-4, 1e-3)),
+          f"tune: ASHA should stop lr 3e-2 early and no other trial: {got}")
+    check(best.config["lr"] == 1e-3, f"tune: the best lr is {best.config['lr']:g}, not 1e-3")
+    check(best.trial_id == lowest.trial_id, "tune: the best result is not the lowest last loss")
+    n_layers = tfm.ModelConfig(**(model or {})).n_layers
+    check(launches == dict(fwd=its * n_layers, dq=its * n_layers, dkv=its * n_layers),
+          f"tune launches {launches}, expected {its * n_layers} each over {its} iterations")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3874,9 +4309,11 @@ def main() -> None:
     paged_row = phase_paged()
     flash_launches = phase_forward()
     paged_launches, tps = phase_serve()
-    train_launches, step_ms, train_tps = phase_train()
+    train_launches, step_ms, train_tps, train_losses = phase_train()
     phase_train_f32()
     par = phase_parallel(step_ms, train_tps)
+    lib_launches = [phase_trainer(train_losses), phase_elastic_train(), phase_tune()]
+    trainer_launches = {k: sum(x[k] for x in lib_launches) for k in ("fwd", "dq", "dkv")}
     wide_rows = phase_wide_heads()
     llm = phase_llm_engine()
     disagg = phase_llm_disagg()
@@ -3900,17 +4337,17 @@ def main() -> None:
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",
              launches=flash_launches, **flash_row, wide_shape=wide_rows["fwd"],
-             mesh_launches=par["fwd"]),
+             mesh_launches=par["fwd"], trainer_launches=trainer_launches["fwd"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:230",
              launches=train_launches["dq"], **bwd_rows["dq"], wide_shape=wide_rows["dq"],
-             mesh_launches=par["dq"]),
+             mesh_launches=par["dq"], trainer_launches=trainer_launches["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:247",
              launches=train_launches["dkv"], **bwd_rows["dkv"], wide_shape=wide_rows["dkv"],
-             mesh_launches=par["dkv"]),
+             mesh_launches=par["dkv"], trainer_launches=trainer_launches["dkv"]),
     ]
     print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s; "
           f"mesh train {par['step_ms']:.2f} ms/step, {par['tps']:.1f} tokens/s; "

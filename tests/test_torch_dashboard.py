@@ -46,15 +46,20 @@ def cluster(_sched_on_cpu):
     c.shutdown()
 
 
+# a route waits on the head's locks and an agent RPC, which a loaded host
+# (the suite's parallel workers) can hold for seconds
+HTTP_TIMEOUT_S = 30
+
+
 def _http_json(url):
-    with urllib.request.urlopen(url, timeout=10) as r:
+    with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT_S) as r:
         return json.loads(r.read())
 
 
 def _status(url, method="GET", data=None):
     req = urllib.request.Request(url, data=data, method=method)
     try:
-        with urllib.request.urlopen(req, timeout=10) as r:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
             return r.status
     except urllib.error.HTTPError as exc:
         return exc.code
@@ -107,7 +112,8 @@ def _submit_and_wait(base, entrypoint):
     )
     with urllib.request.urlopen(req, timeout=10) as r:
         job_id = json.loads(r.read())["job_id"]
-    deadline = time.monotonic() + 60
+    # the reference's own job test waits 120 s (test_jobs_dashboard.py)
+    deadline = time.monotonic() + 120
     while time.monotonic() < deadline:
         info = _http_json(f"{base}/api/jobs/{job_id}")
         if info["status"] in ("SUCCEEDED", "FAILED", "STOPPED"):
@@ -261,11 +267,15 @@ def _cluster_snapshot(pkg, tmp_path):
     out = {}
     try:
         f = api.remote(_square).options(num_cpus=0.25, max_retries=0)
-        assert api.get([f.remote(i) for i in range(6)], timeout=60) == [
-            i * i for i in range(6)
-        ]
+        # the refs stay held while the routes are read: a released object
+        # leaves the head's directory when its decref batch lands, so a
+        # dropped ref made /api/objects empty or not by timing (and with it
+        # the row key set compared below)
+        refs = [f.remote(i) for i in range(6)]
+        assert api.get(refs, timeout=60) == [i * i for i in range(6)]
         a = api.remote(_Counter).options(num_cpus=0.25).remote()
-        assert api.get(a.add.remote(5), timeout=60) == 5
+        refs.append(a.add.remote(5))
+        assert api.get(refs[-1], timeout=60) == 5
         pg = api.placement_group([{"CPU": 0.5}], strategy="PACK")
         assert pg.wait(timeout_seconds=60)
         base = f"http://127.0.0.1:{c.head.dashboard.port}"
@@ -273,6 +283,15 @@ def _cluster_snapshot(pkg, tmp_path):
         script.write_text('print("parity-job")')
         job_id, info = _submit_and_wait(base, f"{sys.executable} {script}")
         out["job_status"] = info["status"]
+        # the head's directory learns of a task's result from its node's
+        # batched seal report: wait until it lists the six (an actor call's
+        # result stays with its caller)
+        held = {r.hex for r in refs[:6]}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            if held <= {row["object_id"] for row in _http_json(base + "/api/objects")}:
+                break
+            time.sleep(0.2)
         for route in JSON_ROUTES:
             out[route] = (_status(base + route), _http_json(base + route))
         nid = out["/api/nodes"][1][0]["NodeID"]
@@ -299,11 +318,12 @@ def _cluster_snapshot(pkg, tmp_path):
 def test_dashboard_routes_equal_to_the_reference(tmp_path):
     want = _cluster_snapshot("ray_tpu", tmp_path)
     got = _cluster_snapshot("ray_tpu_torch", tmp_path)
-    assert got["job_status"] == want["job_status"] == "SUCCEEDED"
+    assert got["job_status"] == want["job_status"] == "SUCCEEDED", (got["job_status"],
+                                                                     want["job_status"])
     assert got["status_codes"] == want["status_codes"]
     for route in JSON_ROUTES + ("debug",):
         (gs, gbody), (ws, wbody) = got[route], want[route]
-        assert gs == ws == 200, route
+        assert gs == ws == 200, (route, gs, ws)
         if route == "/api/rpc_stats":
             # keyed by handler name, which depends on the RPCs the run made;
             # each handler's stats have the same fields
@@ -312,15 +332,15 @@ def test_dashboard_routes_equal_to_the_reference(tmp_path):
             for name in shared:
                 assert set(gbody[name]) == set(wbody[name]), name
             continue
-        assert _key_sets(gbody) == _key_sets(wbody), route
+        assert _key_sets(gbody) == _key_sets(wbody), (route, gbody, wbody)
     for route in ("/api/nodes", "/api/actors", "/api/placement_groups", "/api/jobs"):
-        assert len(got[route][1]) == len(want[route][1]), route
+        assert len(got[route][1]) == len(want[route][1]), (route, got[route], want[route])
     assert len(got["/api/nodes"][1]) == 2
     # the cluster status's own sections
     for key in ("metrics", "leases"):
         assert _key_sets(got["/api/cluster_status"][1][key]) == _key_sets(
             want["/api/cluster_status"][1][key]
-        ), key
+        ), (key, got["/api/cluster_status"][1][key], want["/api/cluster_status"][1][key])
 
 
 def _mask(rows, id_keys, node_ids):

@@ -8,10 +8,9 @@ mid-stripe severing, the landing zone's chunks, finish and abort, many
 leaves and non-contiguous ones, the zero-copy seal, the pump on a bf16
 tensor, the pump's no-monolithic-readout rule, the landing scope, the
 kill switch, the arena pin, the RDT fast path, a state pytree through
-the plane bit-equal to a host-bounce run, and the debug block. The
-reference's regather case rides ``train.elastic``, which the port has
-not yet (ROADMAP Queue A item 9); its port here seals the same state
-through the object plane.
+the plane bit-equal to a host-bounce run (the elastic reshape's seal and
+regather, through the port's ``train.elastic`` as the reference's case
+goes through its own), and the debug block.
 
 Parity (data movement is exact): the same seeded numpy data, sealed by
 the reference as ``jax.Array`` leaves and by the port as tensors, fetched
@@ -513,10 +512,16 @@ def test_rdt_put_get_device_fast_path(rt):
     assert type(nout) is np.ndarray and nout[-1] == 63
 
 
-def test_state_through_the_plane_bitexact_vs_host_bounce(monkeypatch):
-    """A training-state pytree sealed through the device plane lands
-    bitwise the same as a host-bounce (plane off) run, and the plane's
+def test_state_through_the_plane_bitexact_vs_host_bounce(rt, monkeypatch):
+    """Elastic reshape regather over the device plane produces bitwise
+    the same state as a host-bounce (plane off) run, and the plane's
     leaves come back as tensors with ``requires_grad`` kept."""
+    from ray_tpu_torch.train.elastic import (
+        fetch_sealed,
+        regather_state,
+        seal_rank_state,
+    )
+
     rng = np.random.default_rng(11)
     state = {
         "w": torch.from_numpy(rng.standard_normal((37, 8)).astype(np.float32)),
@@ -528,12 +533,27 @@ def test_state_through_the_plane_bitexact_vs_host_bounce(monkeypatch):
     }
 
     def run():
-        parts, _ = wire.dumps_parts(state)
-        return wire.loads(memoryview(wire.join_parts(parts)))
+        hexes = [
+            seal_rank_state(
+                state, 5, rank, 2, 4, elastic_shard_rules=(r"^opt/m$",)
+            )[0]
+            for rank in range(2)
+        ]
+        # the local runtime keeps a put by reference: each sealed payload
+        # then crosses the wire as a worker's seal would
+        payloads = []
+        for h in hexes:
+            parts, _ = wire.dumps_parts(fetch_sealed(h))
+            payloads.append(wire.loads(memoryview(wire.join_parts(parts))))
+        rebuilt, step = regather_state(payloads)
+        assert step == 5
+        return rebuilt
 
     seals = dp.device_stats()["device_frame_seals_total"]
     dev = run()
-    assert dp.device_stats()["device_frame_seals_total"] == seals + 3
+    # each rank's payload goes through the plane's pickler: the two full
+    # tensor leaves and its two virtual slices of opt/m, as device frames
+    assert dp.device_stats()["device_frame_seals_total"] == seals + 8
     assert isinstance(dev["opt"]["m"], torch.Tensor)
     monkeypatch.setenv("RAY_TPU_DEVICE_PLANE", "0")
     host = run()
@@ -541,6 +561,7 @@ def test_state_through_the_plane_bitexact_vs_host_bounce(monkeypatch):
         a, b = get(dev), get(host)
         assert a.dtype == b.dtype and a.requires_grad == b.requires_grad
         assert _bytes(a.detach()) == _bytes(b.detach())  # bit-exact
+        assert _bytes(a.detach()) == _bytes(get(state).detach())
     assert dev["opt"]["count"] == host["opt"]["count"] == 7
 
 

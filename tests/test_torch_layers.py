@@ -109,6 +109,7 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.dryrun\n"
         "import ray_tpu_torch.parallel.programs, ray_tpu_torch.ops.pipeline\n"
         "import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.ops.ulysses\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.train.programs, ray_tpu_torch.tune\n"
         "import torch\n"
         "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
         "from ray_tpu_torch.models import transformer as tfm\n"
@@ -133,6 +134,12 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "from ray_tpu_torch.cluster.serialization import dumps_parts, join_parts, loads\n"
         "t = torch.arange(6.0)\n"
         "assert torch.equal(loads(memoryview(join_parts(dumps_parts(t)[0]))), t)\n"
+        "import tempfile, os\n"
+        "from ray_tpu_torch.train import Checkpoint\n"
+        "d = os.path.join(tempfile.mkdtemp(), 'c')\n"
+        "w = torch.arange(6.0).to(torch.bfloat16)\n"
+        "back = Checkpoint.from_state({'p': {'w': w}, 'opt': opt.state_dict()}, d).load_state()\n"
+        "assert torch.equal(back['p']['w'], w)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
         "print(','.join(bad))\n"
