@@ -92,6 +92,29 @@ passes or exits non-zero:
    retags the cache so the old prefix misses, and at its drain deadline
    evicts a wedged slot and sheds the next submit (``Overloaded``); no
    engine leaks a page;
+5d. serving (``ray_tpu_torch/serve/``, ``llm/serving.py``; ``phase_serving``)
+   on one ``Cluster()`` (the head on the card, two agents sharing it,
+   replicas in worker processes on a quarter GPU lease each), every paged
+   launch counted inside the replica processes: bench.py's ``serve_bench`` (a
+   ``build_llm_deployment`` of ModelConfig() bf16, 2 continuous replicas,
+   max_batch 4, prefix cache on, open loop at 6 QPS for 20 s, 80% hot
+   prefixes, 12 tokens): sustained QPS, TTFT p50, e2e p99, shed count and
+   prefix hits, zero per-request head RPCs, every admitted stream 12
+   tokens; one POST through ``start_http_proxy`` (the standard library's
+   server without aiohttp) equal to the router's unary call; a one-replica
+   f32 deployment's 8 greedy streams token-exact with the engine on the CPU
+   (TF32 off). ``serve_disagg_bench``: one prefill replica, one then two
+   decode replicas, two weight variants; per decode count a burst of 24
+   requests at 8, each naming the base variant, tenants from bench.py's
+   mix: TTFT p50, decode tokens/s and the hand-off's MB/s, no fallback to a
+   local prefill, no decode-side full prefill, paged launches in every
+   decode replica; forced swaps between the variants with no stream error.
+   ``router_scale_bench``: its token server behind 1 and 2 routers at 40
+   QPS, QPS and e2e p99 and their ratio; then the LLM deployment in f32
+   with a router killed mid-stream three times, every stream token-exact
+   with an unbroken run, failover p95. The paged kernel is also held
+   against its plain version at the
+   serving decode shape (max_batch 4, 8-token pages);
 6. runs the scheduler slice on the card against the port's CPU path, every
    output bit-identical: bench.py's kernel tier (1,024 nodes, 100,000
    requests) through ``hybrid_schedule_shapes``, with capacity recomputed on
@@ -131,8 +154,8 @@ passes or exits non-zero:
    under its lease's ``CUDA_VISIBLE_DEVICES``, a head restart from its WAL
    with the new head's state on the card, leased tasks then ``kill_node``
    and a lineage rebuild); each recorded round (the parked-demand ring's
-   from the card burst on) is replayed on the CPU; the burst runs again
-   with the head on the port's CPU path. Each burst prints its ring
+   from the card burst on) is replayed on the CPU; the burst runs again,
+   one pass, with the head on the port's CPU path. Each burst prints its ring
    rounds' program ms and slots walked, and the client's lease grants,
    grant RPC ms, misses by the state of their shape's leases and lease
    ages. Any ERROR record fails the phase;
@@ -141,8 +164,8 @@ passes or exits non-zero:
    grants to a sink), synchronous then pipelined after a warm-up run:
    placements/s, round p50/p99, divergence 0; every head and ring round of
    the runs, recorded on the card, replays equal on the CPU;
-10. runs ``run_elasticity_sim`` at bench.py's part (b) defaults (10,000
-   nodes, 8 ticks, 200 parked shapes): tick p50/p99, ``solve_path``,
+10. runs ``run_elasticity_sim`` at bench.py's part (b) sizes (10,000
+   nodes, 200 parked shapes), 2 ticks of its 8: tick p50/p99, ``solve_path``,
    every tick's ``solve_pack_counts`` on the card, each replayed on the
    CPU (per_node and placed equal, the residual within 1e-5);
 11. drives the autoscaler: in the local runtime on the card (256 nodes, a
@@ -1810,6 +1833,639 @@ def phase_llm_disagg():
 
 
 # ---------------------------------------------------------------------------
+# 5d. serving: deployments, the router fleet, build_llm_deployment
+# ---------------------------------------------------------------------------
+# bench.py serve_bench's traffic: three hot prefixes take 80% of the prompts
+SERVE_HOT = ["the quick brown fox jumps over it " * 2,
+             "in the beginning there was a tape " * 2,
+             "once upon a time in a cluster far " * 2]
+# bench.py's per-request head surfaces, which the steady state must not call
+HEAD_RPCS = ("SubmitLease", "WaitObjectBatch", "WaitObject", "PutObject",
+             "GrantTaskLease", "CreateActor", "WaitActor", "LocateObjects")
+SERVE_ENGINE = dict(engine="continuous", max_batch=4, page_size=8, n_pages=128)  # bench.py's
+F32_PROMPTS = ["a prompt of plain words", "tokens come one at a time",
+               "the card decodes what the host asks", "pages of keys and values",
+               "a router in front of replicas", "eight greedy streams in f32",
+               "no tensor float here", "the last of the prompts"]
+
+
+def id_tokenizer():
+    """The engines' byte tokenizer, whose decode names every token id
+    (``"<id> "``): the byte tokenizer decodes each id of 256 and above,
+    most of ModelConfig()'s 32,000, to nothing. The class is local, so
+    replicas unpickle it by value."""
+    from ray_tpu_torch.llm.engine import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        def decode(self, ids):
+            return "".join(f"{int(i)} " for i in ids)
+
+    return IdTokenizer()
+
+
+def text_ids(texts) -> list:
+    return [int(x) for x in "".join(texts).split()]
+
+
+def serve_model(dtype, model=None, seed=0):
+    """ModelConfig() (or ``model``'s overrides) in ``dtype`` and its seeded
+    weights on the host, as the deployment's closure carries them."""
+    cfg = tfm.ModelConfig(**dict(model or {}, dtype=dtype))
+    return cfg, tfm.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+
+
+def serve_cluster(device: str, nodes: int = 2, workers: int = 3):
+    """(a ``Cluster`` with the head on ``device`` and ``nodes`` agents that
+    share the card (one GPU each, which replicas lease in quarters), its
+    client, the runtime the serving phases use)."""
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    _platform_env(device)
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"  # f32 stays f32 in every replica
+    c = _cluster(device)
+    gpu = {"GPU": 1.0} if device == "cuda" else {}
+    for _ in range(nodes):
+        c.add_node({"CPU": 4.0, **gpu}, num_workers=workers)
+    client = c.client()
+    set_runtime(client)
+    return c, client
+
+
+def close_cluster(c, client) -> None:
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    try:
+        serve.shutdown()
+    finally:
+        set_runtime(None)
+        client.shutdown()
+        c.shutdown()
+        os.environ.pop("NVIDIA_TF32_OVERRIDE", None)
+    # the replicas hold CUDA contexts; give their processes time to end
+    t0, left, named = time.perf_counter(), descendants(), False
+    while left and time.perf_counter() - t0 < 60.0:
+        time.sleep(0.5)
+        left = descendants()
+        if left and not named and time.perf_counter() - t0 > 5.0:
+            named = True
+            print("serve cluster: still running 5 s after the shutdown: " + "; ".join(
+                f"{pid} {proc_state(pid)} {cmd[-60:]}" for pid, cmd in left.items()), flush=True)
+    if left:  # each worker dumps its threads' stacks on SIGUSR1
+        for pid in left:
+            try:
+                with open(f"/proc/{pid}/wchan") as f:
+                    wchan = f.read()
+                os.kill(pid, signal.SIGUSR1)
+            except OSError:
+                wchan = "?"
+            print(f"serve cluster: pid {pid} still running {time.perf_counter() - t0:.1f} s "
+                  f"after the shutdown, waiting in {wchan!r}: {left[pid]}", flush=True)
+    else:
+        print(f"serve cluster: every process ended {time.perf_counter() - t0:.1f} s after the "
+              "shutdown")
+
+
+def proc_state(pid: int) -> str:
+    """A process's state and the kernel function it waits in."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+        with open(f"/proc/{pid}/wchan") as f:
+            return f"{state}/{f.read() or '-'}"
+    except OSError:
+        return "gone"
+
+
+def replica_actors(name: str) -> list:
+    from ray_tpu_torch.serve.deployment import _apps
+
+    rs = _apps[name]
+    with rs.lock:
+        return [r.actor for r in rs.replicas]
+
+
+def replica_launches(rtt, name: str, reset: bool = False) -> list:
+    """Each replica's paged launches, counted inside its own process."""
+    return [rtt.get(a.kernel_launches.remote(reset), timeout=60)["paged_attention_decode"]
+            for a in replica_actors(name)]
+
+
+def replica_stats(rtt, name: str) -> list:
+    return [rtt.get(a.serve_stats.remote(), timeout=60) for a in replica_actors(name)]
+
+
+def head_rpcs() -> dict:
+    """The head's per-request handlers' call counts so far, by name."""
+    from ray_tpu_torch.cluster.rpc import HANDLER_STATS
+
+    snap = HANDLER_STATS.snapshot()
+    return {n: (snap.get(n) or {}).get("count", 0) for n in HEAD_RPCS}
+
+
+def window_pct(hist, label: dict, base, q: float) -> float:
+    from ray_tpu_torch.util.metrics import percentile_from_buckets
+
+    cur = hist.buckets_snapshot(label)
+    return percentile_from_buckets(hist.boundaries, [max(0, a - b) for a, b in zip(cur, base)], q)
+
+
+def serve_app(cfg, params, name, device, **kw):
+    from ray_tpu_torch.llm import build_llm_deployment
+
+    gpu = {"num_gpus": 0.25} if device == "cuda" else {}
+    return build_llm_deployment(cfg, params, name=name, device=device, tokenizer=id_tokenizer(),
+                                ray_actor_options=gpu, **kw)
+
+
+def run_stream(router, payload, tenant=None):
+    """(the stream's token ids, or None when it was shed; an error raises)."""
+    from ray_tpu_torch.serve.admission import Overloaded
+
+    args = (payload,) if tenant is None else (payload, tenant)
+    try:
+        stream = router.stream(*args)
+    except Overloaded:
+        return None
+    try:
+        return text_ids(list(stream))
+    finally:
+        stream.close()
+
+
+def open_loop(fn, qps: float, seconds: float) -> tuple:
+    """bench.py's open loop: one thread per arrival at ``qps`` for
+    ``seconds``, whether or not earlier requests finished. Returns (each
+    arrival's result or its exception, the wall seconds)."""
+    import threading
+
+    results, threads = {}, []
+
+    def one(i):
+        try:
+            results[i] = fn(i)
+        except Exception as exc:  # noqa: BLE001 - counted as an error
+            results[i] = exc
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        threads.append(threading.Thread(target=one, args=(len(threads),)))
+        threads[-1].start()
+        delay = t0 + len(threads) / qps - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+    for t in threads:
+        t.join(timeout=300)
+    return [results.get(i, TimeoutError("no result")) for i in range(len(threads))], \
+        time.perf_counter() - t0
+
+
+def http_generate(name: str, payload: dict, standard_library: bool) -> str:
+    """One POST /<name> through ``start_http_proxy``: the aiohttp proxy, or
+    with ``standard_library`` the ``ThreadingHTTPServer`` it takes where
+    aiohttp does not import. Stops the server after the reply."""
+    import importlib
+    import importlib.util
+    import urllib.request
+
+    import ray_tpu_torch.serve as serve
+
+    dep = importlib.import_module("ray_tpu_torch.serve.deployment")
+    find_spec = importlib.util.find_spec
+    if standard_library:
+        importlib.util.find_spec = lambda m, *a: None if m == "aiohttp" else find_spec(m, *a)
+    try:
+        port = serve.start_http_proxy(port=0)
+    finally:
+        importlib.util.find_spec = find_spec
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/{name}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())["result"]["generated_text"]
+    finally:
+        dep._http_server.shutdown()
+        dep._http_server = None
+
+
+def serve_paged_check(cfg) -> None:
+    """The paged kernel against its plain version at the decode shape the
+    serving phases give it (max_batch 4, 8-token pages, 128 pages)."""
+    b, page, n_pages = SERVE_ENGINE["max_batch"], SERVE_ENGINE["page_size"], SERVE_ENGINE["n_pages"]
+    kh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    args = paged_inputs(b, kh, g, d, n_pages, page, 16, [83, 80, 9, 128], cfg.dtype, 41)
+    paged_case(f"serve shape (B={b}, page {page}, {n_pages} pages)", args, page,
+               2e-2 if cfg.dtype == torch.bfloat16 else 2e-5)
+
+
+def phase_serve_deployment(device: str = "cuda", model=None, qps: float = 6.0,
+                           seconds: float = 20.0, max_new: int = 12) -> int:
+    """bench.py's serve_bench on the port: ``build_llm_deployment`` of
+    ModelConfig() (bf16), 2 continuous replicas in worker processes on the
+    card (max_batch 4, prefix cache on) behind the lease-routed router on 2
+    agents, open loop at ``qps`` for ``seconds``, 80% of the prompts from
+    three hot prefixes, ``max_new`` tokens each. Sustained QPS, TTFT p50, e2e
+    p99, shed count and prefix-hit rate; zero per-request head RPCs; every
+    replica launched the paged kernel; every admitted stream ended with
+    ``max_new`` tokens, as the engine's own run of the request does (no EOS).
+    Then one POST through ``start_http_proxy`` equals the router's unary
+    call, and a one-replica f32 deployment (TF32 off) streams 8 greedy
+    prompts token for token as the port's engine on the CPU. Returns the
+    paged launches counted inside the replicas."""
+    import random
+
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.serve.admission import SERVE_SHED
+    from ray_tpu_torch.serve.router import SERVE_E2E_MS, SERVE_TTFT_MS
+
+    import importlib.util
+
+    t0 = time.perf_counter()
+    print("serve ingresses on this machine: " + ", ".join(
+        f"{m} {'imports' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("aiohttp", "grpc")) + " (the HTTP proxy takes aiohttp where it imports, "
+        "the standard library's server otherwise; the proto ingress needs grpc)")
+    cfg, params = serve_model(torch.bfloat16, model)
+    if device == "cuda":
+        serve_paged_check(cfg)
+    name = "serve-llm"
+    try:
+        serve.run(serve_app(cfg, params, name, device, num_replicas=2, **SERVE_ENGINE))
+        router = serve.get_router(name)
+        rng = random.Random(7)
+        picks = [rng.choice(SERVE_HOT) if rng.random() < 0.8
+                 else f"cold prompt number {i} with some extra words" for i in range(int(qps * seconds) + 8)]
+
+        def request(i):
+            return run_stream(router, {"prompt": picks[i], "max_new_tokens": max_new})
+
+        warm = open_loop(request, 4 / 0.05, 0.05)[0]  # 4 arrivals: both replicas warm
+        check(all(isinstance(r, list) and len(r) == max_new for r in warm), f"serve warm-up: {warm}")
+        lbl = {"deployment": name}
+        ttft0, e2e0 = SERVE_TTFT_MS.buckets_snapshot(lbl), SERVE_E2E_MS.buckets_snapshot(lbl)
+        shed0 = sum(SERVE_SHED.values_by_label().values())
+        replica_launches(rtt, name, reset=True)
+        rpcs0 = head_rpcs()
+        results, wall = open_loop(request, qps, seconds)
+        rpcs = {k: v - rpcs0[k] for k, v in head_rpcs().items() if v > rpcs0[k]}
+        launches = replica_launches(rtt, name)
+        shed = sum(SERVE_SHED.values_by_label().values()) - shed0
+        errors = [r for r in results if isinstance(r, Exception)]
+        done = [r for r in results if isinstance(r, list)]
+        stats = replica_stats(rtt, name)
+        hits = sum((s.get("prefix_cache") or {}).get("hits", 0) for s in stats)
+        lookups = hits + sum((s.get("prefix_cache") or {}).get("misses", 0) for s in stats)
+        ttft = window_pct(SERVE_TTFT_MS, lbl, ttft0, 0.5)
+        e2e = window_pct(SERVE_E2E_MS, lbl, e2e0, 0.99)
+        print(f"serve deployment ModelConfig() bf16, 2 replicas, open loop {qps:g} QPS x "
+              f"{seconds:g} s, {max_new} tokens: {len(results)} launched, {len(done)} completed, "
+              f"{len(errors)} errors, {shed} shed; sustained {len(done) / wall:.2f} QPS, TTFT p50 "
+              f"{ttft:.1f} ms, e2e p99 {e2e:.1f} ms, prefix hits {hits}/{lookups}; head RPCs "
+              f"in the window {rpcs or 0}; paged launches "
+              f"per replica {launches} [{card_line()}]")
+        check(not errors, f"serve: {len(errors)} streams failed, first: {errors[:1]!r}")
+        check(all(len(r) == max_new for r in done),
+              f"serve: stream lengths {sorted({len(r) for r in done})}, not {max_new}")
+        check(len(done) + shed == len(results), "serve: a stream was neither admitted nor shed")
+        # the controller's liveness sweep reads each replica's state with one
+        # WaitActor a second (deployment.reap_dead_replicas), whatever the
+        # traffic; every other head call of the window would be per request
+        sweep = 2 * (math.ceil(wall) + 2)
+        check(set(rpcs) <= {"WaitActor"} and rpcs.get("WaitActor", 0) <= sweep,
+              f"serve: per-request head RPCs in the steady state: {rpcs} (the liveness "
+              f"sweep's WaitActor at most {sweep})")
+        check(len(launches) == 2 and all(n > 0 for n in launches),
+              f"serve: paged launches per replica {launches}")
+        check(lookups > 0 and hits > 0, f"serve: prefix cache hits {hits} of {lookups}")
+
+        payload = {"prompt": "hello", "max_new_tokens": max_new}
+        unary = router.call(payload, timeout=120)["generated_text"]
+        kinds = (["aiohttp"] if importlib.util.find_spec("aiohttp") else []) + ["standard library"]
+        for kind in kinds:
+            text = http_generate(name, payload, kind == "standard library")
+            print(f"serve http ({kind} server): POST /{name} -> {len(text_ids([text]))} tokens, "
+                  f"equal to the router's unary call: {text == unary}")
+            check(text == unary and text_ids([text]),
+                  f"serve: the {kind} proxy's text differs from the router's unary call")
+        serve.shutdown()
+
+        # f32, TF32 off: the deployment's streams against the engine on the CPU
+        cfg32, p32 = serve_model(torch.float32, model)
+        serve.run(serve_app(cfg32, p32, "serve-f32", device, num_replicas=1,
+                            prefix_cache=False, **SERVE_ENGINE))
+        router32 = serve.get_router("serve-f32")
+        got = [run_stream(router32, {"prompt": p, "max_new_tokens": 24}) for p in F32_PROMPTS]
+        cpu = ContinuousBatchingEngine(cfg32, p32, device="cpu", tokenizer=id_tokenizer(),
+                                       **{k: v for k, v in SERVE_ENGINE.items() if k != "engine"})
+        want = [list(cpu.stream_ids(cpu.tokenizer.encode(p), GenerationConfig(max_new_tokens=24)))
+                for p in F32_PROMPTS]
+        same = sum(a == b for a, b in zip(got, want))
+        print(f"serve f32 deployment vs the engine on the CPU (TF32 off): {same}/{len(want)} "
+              f"greedy streams token-exact")
+        check(same == len(want), "serve: f32 deployment streams differ from the CPU engine's")
+    finally:
+        serve.shutdown()
+    print(f"serve deployment phase: {time.perf_counter() - t0:.1f} s")
+    return sum(launches)
+
+
+def phase_serve_disagg(device: str = "cuda", model=None, max_new: int = 10,
+                       burst_n: int = 24, burst_conc: int = 8) -> int:
+    """bench.py's serve_disagg_bench on the port: ``build_llm_deployment``
+    of ModelConfig() (bf16) with one prefill replica and one, then two,
+    decode replicas, two weight variants (m0, the base, and m1). A
+    closed-loop burst of ``burst_n`` requests at ``burst_conc`` at each
+    decode count, with bench.py's traffic: every request names m0, its
+    tenant drawn from the mix 0.7/0.2/0.1, each tenant of weight 1. TTFT
+    p50, decode tokens/s, the hand-off's MB/s; every stream adopts shipped
+    pages (no fallback to a local prefill, no full prefill on the decode
+    side), and every decode replica launches the paged kernel (the second
+    one takes m0 traffic: it starts on the base). Then forced swaps between
+    m0 and m1 under live streams, with no stream error. Returns the paged
+    launches counted inside the decode replicas."""
+    import random
+    import threading
+
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.serve.router import SERVE_TTFT_MS
+
+    t0 = time.perf_counter()
+    cfg, base = serve_model(torch.bfloat16, model, seed=7)
+    alt = serve_model(torch.bfloat16, model, seed=11)[1]
+    name = "serve-disagg"
+    launches_total = 0
+    try:
+        serve.run(serve_app(cfg, base, name, device, num_replicas=1, prefill_replicas=1,
+                            variants={"m1": alt}, base_model_id="m0", **SERVE_ENGINE))
+        router = serve.get_router(name)
+        tenant_mix = [("t-flood", 0.7), ("t-mid", 0.2), ("t-victim", 0.1)]  # bench.py's
+        router.admission.set_tenant_weights({t: 1.0 for t, _ in tenant_mix})
+        rng = random.Random(7)
+        lock = threading.Lock()
+
+        def pick_tenant():
+            r, acc = rng.random(), 0.0
+            for t, w in tenant_mix:
+                acc += w
+                if r < acc:
+                    return t
+            return tenant_mix[-1][0]
+
+        def request(i, model_id="m0", tenant=None):
+            """One stream naming ``model_id``; the router keeps it to the
+            decode replicas that can serve that variant without a swap (a
+            cold one swaps). Without ``tenant``, one from bench.py's mix."""
+            with lock:
+                prompt = (rng.choice(SERVE_HOT) if rng.random() < 0.8
+                          else f"cold prompt number {i} with some extra words")
+                tenant = tenant or pick_tenant()
+            return run_stream(router, {"prompt": prompt, "max_new_tokens": max_new,
+                                       "model": model_id}, tenant)
+
+        def counters():
+            keys = ("handoff_bytes", "handoff_s", "handoffs", "handoff_fallbacks",
+                    "full_prefill_count", "adopted_count", "weight_swaps")
+            out = dict.fromkeys(keys, 0)
+            for s in replica_stats(rtt, name):
+                for k in keys:
+                    out[k] += s.get(k) or 0
+            return out
+
+        def burst():
+            results, counter = [], [0]
+
+            def worker():
+                while True:
+                    with lock:
+                        if counter[0] >= burst_n:
+                            return
+                        counter[0] += 1
+                        i = counter[0]
+                    try:
+                        results.append(request(i))
+                    except Exception as exc:  # noqa: BLE001 - counted below
+                        results.append(exc)
+
+            t1 = time.perf_counter()
+            threads = [threading.Thread(target=worker) for _ in range(burst_conc)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            return results, time.perf_counter() - t1
+
+        for i, m in enumerate(("m0", "m1", "m0")):  # warm both tiers and both variants
+            check(len(request(i, m, "t-flood") or []) == max_new, "disagg: a warm-up stream failed")
+        lbl = {"deployment": name}
+        rows = []
+        for n_decode in (1, 2):
+            if n_decode == 2:
+                router._rs.add_replica()
+                for r in open_loop(lambda i: request(100 + i, "m0", "t-flood"), 80.0, 0.05)[0]:
+                    check(isinstance(r, list), f"disagg: warm-up of the new replica: {r!r}")
+            replica_launches(rtt, name, reset=True)
+            before, ttft0 = counters(), SERVE_TTFT_MS.buckets_snapshot(lbl)
+            results, wall = burst()
+            after, launches = counters(), replica_launches(rtt, name)
+            errors = [r for r in results if isinstance(r, Exception)]
+            done = [r for r in results if isinstance(r, list) and len(r) == max_new]
+            d = {k: after[k] - before[k] for k in after}
+            mbps = d["handoff_bytes"] / d["handoff_s"] / 2**20 if d["handoff_s"] else float("nan")
+            rows.append(dict(tps=len(done) * max_new / wall,
+                             ttft=window_pct(SERVE_TTFT_MS, lbl, ttft0, 0.5)))
+            print(f"serve disagg ModelConfig() bf16, 1 prefill + {n_decode} decode: burst "
+                  f"{burst_n} at {burst_conc}: {len(done)} completed, {len(errors)} errors in "
+                  f"{wall:.2f} s, decode {rows[-1]['tps']:.1f} tokens/s, TTFT p50 "
+                  f"{rows[-1]['ttft']:.1f} ms; hand-offs {d['handoffs']} ({d['handoff_bytes'] / 2**20:.1f} "
+                  f"MiB, {mbps:.1f} MB/s), fallbacks {d['handoff_fallbacks']}, adopted "
+                  f"{d['adopted_count']}, decode-side full prefills {d['full_prefill_count']}; "
+                  f"paged launches per decode replica {launches} [{card_line()}]")
+            check(not errors and len(done) == burst_n,
+                  f"disagg: {len(done)}/{burst_n} streams completed, errors {errors[:1]!r}")
+            check(d["handoff_fallbacks"] == 0 and d["full_prefill_count"] == 0,
+                  f"disagg: {d['handoff_fallbacks']} fallbacks, {d['full_prefill_count']} full "
+                  f"prefills in the steady state")
+            check(d["adopted_count"] == d["handoffs"] == burst_n,
+                  f"disagg: {d['adopted_count']} adopted, {d['handoffs']} hand-offs, not {burst_n}")
+            check(len(launches) == n_decode and all(n > 0 for n in launches),
+                  f"disagg: paged launches per decode replica {launches}")
+            launches_total += sum(launches)
+        print(f"serve disagg scaling 1 -> 2 decode replicas: {rows[1]['tps'] / rows[0]['tps']:.3f}x "
+              f"decode tokens/s, TTFT p50 {rows[0]['ttft']:.1f} -> {rows[1]['ttft']:.1f} ms")
+
+        swaps0 = counters()
+        results = open_loop(lambda i: request(200 + i, "m0" if i % 2 else "m1", "t-mid"), 10.0, 0.6)[0]
+        swaps = counters()
+        errors = [r for r in results if not (isinstance(r, list) and len(r) == max_new)]
+        print(f"serve disagg hot swap: {len(results)} streams alternating m0/m1, {len(errors)} "
+              f"errors, {swaps['weight_swaps'] - swaps0['weight_swaps']} decode-side swaps, "
+              f"fallbacks {swaps['handoff_fallbacks'] - swaps0['handoff_fallbacks']}")
+        check(not errors, f"disagg: swap streams failed: {errors[:1]!r}")
+        check(swaps["weight_swaps"] > swaps0["weight_swaps"], "disagg: no swap happened")
+        check(swaps["handoff_fallbacks"] == 0, "disagg: a hand-off fell back to a local prefill")
+    finally:
+        serve.shutdown()
+    print(f"serve disagg phase: {time.perf_counter() - t0:.1f} s")
+    return launches_total
+
+
+def token_server():
+    """bench.py's _BenchTokenServer: a resumable stream of ``n`` tokens
+    ("tok0", "tok1", ...), cheap enough that the ingress routers, not the
+    replicas, are what the fleet rows measure. The class is local, so
+    replicas unpickle it by value."""
+
+    class TokenServer:
+        def __init__(self, delay_s: float = 0.0):
+            self.delay_s = float(delay_s)
+
+        def stream_to(self, writer, request):
+            n = int(request.get("n", 16))
+            for i in range(int(request.get("resume_from", 0)), n):
+                if self.delay_s:
+                    time.sleep(self.delay_s)
+                writer.write(f"tok{i}")
+            writer.close_channel()
+            return n
+
+    return TokenServer
+
+
+def phase_router_fleet(device: str = "cuda", model=None, qps: float = 40.0,
+                       seconds: float = 6.0, n_tokens: int = 8, kills: int = 3) -> int:
+    """bench.py's router_scale_bench on the port: its token server (2
+    replicas) behind 1 and 2 ingress routers, open loop at ``qps`` for
+    ``seconds`` over 8 tenants: sustained QPS and e2e p99 per fleet size,
+    and the 2-router p99 over the 1-router p99 that bench.py's scale gate
+    reads. Then the failover row on ``build_llm_deployment`` (ModelConfig()
+    f32, TF32 off, 2 continuous replicas on the card): 4 streams on 4
+    tenants, one of the two routers killed after the first token,
+    ``kills`` times; each stream that failed over resumes on the sibling,
+    and every stream's tokens equal an unbroken run's of the same requests.
+    Prints the failover p95. Returns the paged launches counted inside the
+    LLM replicas."""
+    import random
+
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.serve.admission import Overloaded
+    from ray_tpu_torch.serve.deployment import _apps, _routers
+    from ray_tpu_torch.serve.fleet import SERVE_ROUTER_FAILOVER_S, RouterFleet
+    from ray_tpu_torch.serve.router import SERVE_E2E_MS
+
+    t0 = time.perf_counter()
+    tenants = [f"tenant-{i}" for i in range(8)]
+    p99 = {}
+    try:
+        for n_routers in (1, 2):
+            os.environ["RAY_TPU_SERVE_ROUTERS"] = str(n_routers)
+            name = f"fleet{n_routers}"
+            serve.run(serve.deployment(name=name, num_replicas=2, resumable_streams=True)(
+                token_server()).bind())
+            fleet = serve.get_router(name)
+            check(len(fleet.routers) == n_routers, f"fleet: {len(fleet.routers)} routers")
+            rng = random.Random(17)
+            picks = [rng.choice(tenants) for _ in range(int(qps * seconds) + 8)]
+
+            def request(i):
+                try:
+                    stream = fleet.stream({"n": n_tokens}, picks[i])
+                except Overloaded:
+                    return None
+                try:
+                    return list(stream)
+                finally:
+                    stream.close()
+
+            open_loop(request, 80.0, 0.05)  # warm both replicas' dispatch, off the clock
+            lbl = {"deployment": name}
+            e2e0 = SERVE_E2E_MS.buckets_snapshot(lbl)
+            results, wall = open_loop(request, qps, seconds)
+            want = [f"tok{i}" for i in range(n_tokens)]
+            done = [r for r in results if r == want]
+            shed = sum(r is None for r in results)
+            errors = [r for r in results if isinstance(r, Exception)]
+            p99[n_routers] = window_pct(SERVE_E2E_MS, lbl, e2e0, 0.99)
+            print(f"router fleet of {n_routers}, bench.py's token server, 2 replicas, open loop "
+                  f"{qps:g} QPS x {seconds:g} s, {n_tokens} tokens: {len(done)}/{len(results)} "
+                  f"completed, {shed} shed, {len(errors)} errors, {len(done) / wall:.2f} QPS, "
+                  f"e2e p99 {p99[n_routers]:.1f} ms [{card_line()}]")
+            check(not errors, f"fleet: streams failed: {errors[:1]!r}")
+            check(len(done) + shed == len(results), "fleet: a stream came short")
+            serve.shutdown()
+        print(f"router fleet scale: e2e p99 at 2 routers / at 1 router = "
+              f"{p99[2] / p99[1]:.3f} (bench.py's gate, off by default, holds the largest "
+              f"fleet's p99 within max(1.5x, 50 ms) of one router's)")
+
+        # the failover row, f32: a router kill severs push-sink streams (the
+        # shm rings of same-host replicas would ride it out)
+        os.environ["RAY_TPU_SERVE_ROUTERS"] = "2"
+        os.environ["RAY_TPU_SERVE_SHM_STREAMS"] = "0"
+        cfg32, p32 = serve_model(torch.float32, model)
+        serve.run(serve_app(cfg32, p32, "fleet-f32", device, num_replicas=2,
+                            prefix_cache=False, **SERVE_ENGINE))
+        fleet = serve.get_router("fleet-f32")
+        replica_launches(rtt, "fleet-f32", reset=True)
+        payloads = [{"prompt": f"a stream that outlives its router {i}", "max_new_tokens": 40}
+                    for i in range(4)]
+
+        def open_streams(fleet):
+            streams = [fleet.stream(p, t) for p, t in zip(payloads, tenants)]
+            return streams, [[s.read(timeout=120)] for s in streams]
+
+        def drain(streams, got):
+            for s, g in zip(streams, got):
+                g.extend(s)
+                s.close()
+            return [text_ids(g) for g in got]
+
+        unbroken = drain(*open_streams(fleet))
+        check(all(len(u) == 40 for u in unbroken), "fleet: an unbroken stream came short")
+        lbl = {"deployment": "fleet-f32"}
+        fo0 = SERVE_ROUTER_FAILOVER_S.buckets_snapshot(lbl)
+        resumed = exact = 0
+        for _ in range(kills):
+            streams, got = open_streams(fleet)
+            victim = streams[0]._rid
+            check(fleet.chaos_kill_router(rid=victim) == victim, "fleet: the kill missed")
+            ids = drain(streams, got)
+            resumed += sum(s.router_failovers > 0 for s in streams)
+            exact += sum(a == b for a, b in zip(ids, unbroken))
+            check(streams[0].router_failovers > 0, "fleet: the victim's stream did not fail over")
+            _routers["fleet-f32"].close()  # a fresh two-router fleet for the next kill
+            fleet = _routers["fleet-f32"] = RouterFleet(_apps["fleet-f32"])
+        p95 = window_pct(SERVE_ROUTER_FAILOVER_S, lbl, fo0, 0.95)
+        launches = replica_launches(rtt, "fleet-f32")
+        print(f"router fleet failover, ModelConfig() f32 (TF32 off), 2 replicas: {kills} kills, "
+              f"{resumed} streams resumed on the sibling, {exact}/{4 * kills} streams token-exact "
+              f"with the unbroken run, failover p95 {p95:.3f} s; paged launches per replica "
+              f"{launches} [{card_line()}]")
+        check(exact == 4 * kills, "fleet: a failed-over stream differs from the unbroken run")
+        check(len(launches) == 2 and all(n > 0 for n in launches),
+              f"fleet: paged launches per replica {launches}")
+    finally:
+        os.environ.pop("RAY_TPU_SERVE_ROUTERS", None)
+        os.environ.pop("RAY_TPU_SERVE_SHM_STREAMS", None)
+        serve.shutdown()
+    print(f"router fleet phase: {time.perf_counter() - t0:.1f} s")
+    return sum(launches)
+
+
+def phase_serving(device: str = "cuda", model=None) -> int:
+    """The three serving phases on one ``serve_cluster``; returns the paged
+    launches counted inside their replicas."""
+    cluster = serve_cluster(device)
+    try:
+        return (phase_serve_deployment(device, model) + phase_serve_disagg(device, model)
+                + phase_router_fleet(device, model))
+    finally:
+        close_cluster(*cluster)
+
+
+# ---------------------------------------------------------------------------
 # 6. the scheduler: card against the port's CPU path
 # ---------------------------------------------------------------------------
 SCHED_EPS = 1e-5  # the scheduler's comparison tolerance (scheduler/hybrid.py _EPS)
@@ -2112,8 +2768,9 @@ def sched_other_programs(st, view):
     both("hybrid_schedule_batch N=256 B=512", lambda d: tuple(H.hybrid_schedule_batch(
         totals, avail, alive, dem, pref, spill, 3, device=d)))
     totals, avail, alive = bench_cluster(1024, rng)
-    chunks = bench_demands(8 * 4096, rng).reshape(8, 4096, 16)
-    res = both("hybrid_schedule_rounds_chunked N=1024 8x4096", lambda d: tuple(
+    # 2 chunks of 4096 (8 before): the CPU side of 8 took ~60 s of the smoke
+    chunks = bench_demands(2 * 4096, rng).reshape(2, 4096, 16)
+    res = both("hybrid_schedule_rounds_chunked N=1024 2x4096", lambda d: tuple(
         H.hybrid_schedule_rounds_chunked(totals, avail, alive, chunks, 5, device=d)))
     nodes = res[0].cpu().numpy()
     flat = chunks.reshape(-1, 16)
@@ -3018,7 +3675,8 @@ def phase_cluster():
         os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
         cpu_ring, _, cpu_ring_restore = _record_ring_rounds()
         try:
-            cpu, cpu_rounds, cpu_hits, cpu_misses = cluster_burst("CPU path", "cpu")
+            # one pass on the CPU path (the card's burst runs two) keeps the smoke in its time
+            cpu, cpu_rounds, cpu_hits, cpu_misses = cluster_burst("CPU path", "cpu", passes=1)
         finally:
             cpu_ring_restore()
             os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
@@ -4317,11 +4975,12 @@ def main() -> None:
     wide_rows = phase_wide_heads()
     llm = phase_llm_engine()
     disagg = phase_llm_disagg()
+    serve_launches = phase_serving()
     phase_scheduler()
     phase_runtime()
     phase_cluster()
     phase_sim()
-    phase_elasticity()
+    phase_elasticity(ticks=2)  # bench.py's 8 ticks cut to 2 to keep the smoke in its time
     phase_autoscaler()
     phase_standby()
     phase_dashboard()
@@ -4332,7 +4991,8 @@ def main() -> None:
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/paged_attention.py:102",
-             launches=paged_launches, **paged_row, wide_shape=wide_rows["paged"]),
+             launches=paged_launches, **paged_row, wide_shape=wide_rows["paged"],
+             serve_launches=serve_launches),
         dict(name="flash_attention_fwd", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",

@@ -22,8 +22,7 @@ model. The golden model runs only when asked for
 reference's two host paths in the unpark (a failed ring unpark retried
 through the host, a failed slot estimate redone by a host scan) are gone:
 a device failure there is a failed round, logged as "scheduler round
-failed", and the parked work stays parked. The serve fleet's budget split
-raises until ``serve/`` is ported (ROADMAP Queue A item 10).
+failed", and the parked work stays parked.
 """
 from __future__ import annotations
 
@@ -5786,10 +5785,94 @@ class HeadServer:
         back its share of the GLOBAL admission rate (∝ summed WFQ
         weights of its active tenants) plus the cluster-headroom bit
         that fixes shed retry hints."""
-        raise NotImplementedError(
-            "the serve fleet's budget split needs ray_tpu_torch.serve, which "
-            "is not ported yet (ROADMAP Queue A item 10)"
-        )
+        from ray_tpu_torch.serve.fleet import compute_budget_shares
+
+        dep = req["deployment"]
+        rid = req["router_id"]
+        window = max(0.05, float(cfg.serve_budget_reconcile_s))
+        with self._lock:
+            stale = self._serve_fence_locked(dep, req.get("epoch", 0))
+            if stale is not None:
+                return stale
+            members = set(
+                (self._serve_fleets.get(dep) or {}).get("members", ())
+            )
+            reports = self._serve_budget.setdefault(dep, {})
+            reports[rid] = {
+                "usage": dict(req.get("usage") or {}),
+                "waiting": dict(req.get("waiting") or {}),
+                "weights": dict(req.get("weights") or {}),
+                "pressure": dict(req.get("pressure") or {}),
+                "ts": time.monotonic(),
+            }
+            now = time.monotonic()
+            for other in list(reports):
+                if other not in members or now - reports[other][
+                    "ts"
+                ] > max(3.0, 4 * window):
+                    del reports[other]
+            shares = compute_budget_shares(
+                reports,
+                float(cfg.serve_admission_qps),
+                float(cfg.serve_admission_burst),
+                window,
+            )
+            share = shares.get(rid) or {
+                "rate": 0.0,
+                "burst": float(cfg.serve_admission_burst),
+                "headroom": True,
+            }
+            # serve pressure → scheduler demand rows: fold the
+            # fleet's queued prefill tokens through the autoscaler
+            # kernel against the alive nodes' residual CPU rows; the
+            # hint rides the reply back to the fleet's SLO autoscaler
+            avail = [
+                float((n.resources or {}).get("CPU", 0.0))
+                for n in self.nodes.values()
+                if getattr(n, "alive", True)
+            ]
+            snapshot = {r: dict(rep) for r, rep in reports.items()}
+        hint = None
+        # unified elasticity plane: when the controller is on
+        # and has a fresh solver verdict for this deployment, it IS the
+        # capacity hint — one solve sized serve, gangs, and tasks
+        # together, so the one-shot plan below would just disagree with
+        # what the fleet was actually granted.
+        if cfg.elastic_controller:
+            with self._lock:
+                row = self._serve_capacity_hints.get(dep)
+            if (
+                row is not None
+                and (row.get("hint") or {}).get("source")
+                == "elastic_controller"
+                and time.monotonic() - row.get("ts", 0.0)
+                <= max(3.0, 4 * float(cfg.elastic_tick_s))
+            ):
+                hint = dict(row["hint"])
+        if hint is None:
+            try:
+                from ray_tpu_torch.scheduler.serve_demand import (
+                    capacity_plan,
+                    pressure_rollup,
+                )
+
+                pressure = pressure_rollup(snapshot)
+                if pressure:
+                    hint = capacity_plan(avail, pressure, device=self.sched_device)
+            except Exception:  # noqa: BLE001 - hint is advisory
+                hint = None
+            with self._lock:
+                self._serve_capacity_hints[dep] = {
+                    "hint": hint,
+                    "ts": time.monotonic(),
+                }
+        # the hint key is ALWAYS present — a None is the positive
+        # "demand drained" signal that lets the fleet clear its
+        # hold-capacity latch immediately instead of waiting out the
+        # staleness window (hold-capacity latch fix)
+        reply = {**share, "window_s": window}
+        reply["capacity_hint"] = hint
+        return reply
 
     def _replay_weights_epoch(self, row: dict) -> None:
         """Apply one ``weights_epoch`` WAL record (seal or commit phase).

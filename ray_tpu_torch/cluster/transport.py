@@ -263,13 +263,15 @@ class DataPlaneServer:
 
     def chaos_drop(self) -> int:
         """Sever every live data connection (peer_conn_drop fault): the
-        senders' in-flight stripes fail and must resume, not restart."""
+        senders' in-flight stripes fail and must resume, not restart. Each
+        connection is shut down, not closed: its serving thread wakes and
+        closes it, so its fd number is not reused under that thread."""
         with self._lock:
             victims = list(self._conns.values())
             self._conns.clear()
             self.stats["chaos_drops"] += len(victims)
         for c in victims:
-            c.close()
+            c.shutdown()
         return len(victims)
 
     def close(self) -> None:
@@ -282,7 +284,7 @@ class DataPlaneServer:
             victims = list(self._conns.values())
             self._conns.clear()
         for c in victims:
-            c.close()
+            c.shutdown()  # each serving thread closes its own connection
         try:
             import os
 

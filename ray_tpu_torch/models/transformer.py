@@ -210,9 +210,11 @@ def _map_specs(fn: Callable[[torch.Tensor, Spec], torch.Tensor], tree: Dict[str,
 
 
 def check_mesh(cfg: ModelConfig, mesh: Mesh) -> None:
-    """Raises where the mesh cannot shard the model evenly. The reference's
-    GSPMD pads a ``tp`` shard that does not divide; the port does not."""
-    tp, pp = mesh.size("tp"), mesh.size("pp")
+    """Raises where the mesh cannot shard the model evenly, as the reference
+    refuses the same meshes (``device_put`` of a ``tp`` or ``pp`` shard that
+    does not divide, ``shard_map`` of Ulysses heads that ``sp`` does not
+    divide)."""
+    tp, pp, sp = mesh.size("tp"), mesh.size("pp"), mesh.size("sp")
     sizes = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, vocab_size=cfg.vocab_size)
     if cfg.n_experts > 0:
         sizes["n_experts"] = cfg.n_experts
@@ -223,6 +225,9 @@ def check_mesh(cfg: ModelConfig, mesh: Mesh) -> None:
             raise ValueError(f"tp={tp} must divide {name}={n}")
     if cfg.n_layers % pp:
         raise ValueError(f"pp={pp} must divide n_layers={cfg.n_layers}")
+    if sp > 1 and cfg.sp_attention == "ulysses" and (cfg.n_heads // tp) % sp:
+        raise ValueError(f"sp={sp} must divide the {cfg.n_heads // tp} heads of a tp rank "
+                         "for Ulysses")
 
 
 def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh: Mesh) -> Dict[str, Any]:
@@ -327,17 +332,35 @@ def _hidden(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig, mesh
         m = num_microbatches or max(1, 2 * pp)
         if (b * dp) % m:
             raise ValueError(f"batch {b * dp} not divisible by microbatches {m}")
-        if m % dp == 0:
-            m_local = m // dp
-        elif cfg.n_experts > 0:
-            raise ValueError(f"MoE under pp routes within each of the {m} microbatches, "
-                             f"which needs dp={dp} to divide them")
-        else:  # dense rows are independent: any split of the local rows will do
-            m_local = math.gcd(m, b)
         stage = functools.partial(_stage, cfg, angles=angles, mesh=mesh)
+        if m % dp and cfg.n_experts > 0:
+            return rms_norm(_straddling_microbatches(params, h, m, stage, mesh), params["ln_f"])
+        # dense rows are independent: any split of the local rows will do
+        m_local = m // dp if m % dp == 0 else math.gcd(m, b)
         x = h.reshape(m_local, b // m_local, t, -1)
         h = pipeline_apply(stage, params["blocks"], x, mesh).reshape(b, t, -1)
     return rms_norm(h, params["ln_f"])
+
+
+def _straddling_microbatches(params: Dict[str, Any], h: torch.Tensor, m: int,
+                             stage: Callable, mesh: Mesh) -> torch.Tensor:
+    """The pipeline over this rank's rows of ``h`` [b, t, D] when ``dp``
+    does not divide the ``m`` microbatches, so that one straddles ``dp``
+    ranks and MoE must route over all of its rows. Every rank gathers the
+    batch over ``dp`` and runs the microbatches that hold any of its rows;
+    a straddling one runs on each of its ranks, and each keeps its own rows.
+    The gather's backward sums the gradients over ``dp`` before it takes
+    this rank's rows (``copy_to``), so a rank's gradient reaches the rows of
+    a straddling microbatch that another rank owns, and nothing is counted
+    twice: each rank's loss reads only its own rows."""
+    b, t = h.shape[:2]
+    rows = b * mesh.size("dp") // m
+    lo = mesh.index("dp") * b
+    first, last = lo // rows, (lo + b - 1) // rows
+    full = copy_to(all_gather(h, mesh, "dp", 0), mesh, "dp")
+    x = full[first * rows:(last + 1) * rows].reshape(last + 1 - first, rows, t, -1)
+    out = pipeline_apply(stage, params["blocks"], x, mesh).reshape(-1, t, h.shape[-1])
+    return out[lo - first * rows:lo - first * rows + b]
 
 
 def _stage(cfg: ModelConfig, blocks: Dict[str, Any], x: torch.Tensor, *,

@@ -260,6 +260,25 @@ class NetSocket:
         self.recv_exact_into(memoryview(buf))
         return bytes(buf)
 
+    def shutdown(self) -> None:
+        """Ends both directions of the connection and keeps the fd: a thread
+        blocked on it wakes with EOF and closes it, and until then no new
+        connection can take the fd's number and have its bytes read by that
+        thread (what ``close`` from another thread allows)."""
+        if self._closed:
+            return
+        try:
+            if self._fd is not None:
+                dup = socket.fromfd(self._fd, socket.AF_INET, socket.SOCK_STREAM)
+                try:
+                    dup.shutdown(socket.SHUT_RDWR)
+                finally:
+                    dup.close()
+            elif self._sock is not None:
+                self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass  # already closed or never connected
+
     def close(self) -> None:
         if self._closed:
             return

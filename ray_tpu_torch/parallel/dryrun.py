@@ -49,16 +49,20 @@ OPTIMIZERS = {
 
 @dataclass(frozen=True)
 class Run:
-    """One configuration: the mesh, the model, the global batch and the
-    sequence length (the tokens are [batch, seq + 1])."""
+    """One configuration: the mesh, the model, the global batch, the
+    sequence length (the tokens are [batch, seq + 1]) and the pipeline's
+    microbatches (0: the default, 2·pp)."""
     mesh: MeshConfig
     model: tfm.ModelConfig
     batch: int
     seq: int
+    microbatches: int = 0
 
     @property
     def num_microbatches(self) -> int:
-        return 2 * self.mesh.pp if self.mesh.pp > 1 else 0
+        if self.mesh.pp == 1:
+            return 0
+        return self.microbatches or 2 * self.mesh.pp
 
 
 def runs(n: int) -> List[Run]:

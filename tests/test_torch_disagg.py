@@ -9,7 +9,7 @@ drain and the parked queue) and tests/test_rl_loop.py's two swap cases
 (mid-stream drain, the drain deadline's force-eviction and typed shed).
 Every stream is held token-exact against the JAX engine fed the same
 weights (``params_from_jax``), prompts and seeds (f32). The routing and
-fleet cases after them wait for the port's ``serve/``."""
+fleet cases after them are in ``tests/test_torch_serve_disagg.py``."""
 import os
 import tempfile
 import threading

@@ -110,6 +110,9 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "import ray_tpu_torch.parallel.programs, ray_tpu_torch.ops.pipeline\n"
         "import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.ops.ulysses\n"
         "import ray_tpu_torch.train, ray_tpu_torch.train.programs, ray_tpu_torch.tune\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.fleet, ray_tpu_torch.llm.serving\n"
+        "import ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.grpc_ingress\n"
+        "import ray_tpu_torch.serve.proto_ingress, ray_tpu_torch.serve.model_store\n"
         "import torch\n"
         "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
         "from ray_tpu_torch.models import transformer as tfm\n"

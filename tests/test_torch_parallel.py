@@ -51,7 +51,15 @@ FORWARD2 = [("dp2", dict(dp=2), 0, {}, 8), ("tp2", dict(tp=2), 0, {}, 8),
 FORWARD4 = [("sp4_ring", dict(sp=4), 0, {}, 8),
             ("sp4_ulysses", dict(sp=4), 0, dict(sp_attention="ulysses"), 8),
             ("dp2_tp2", dict(dp=2, tp=2), 0, {}, 8),
-            ("moe_dp2_pp2", dict(dp=2, pp=2), 4, dict(n_experts=4, n_layers=2), 8)]
+            ("moe_dp2_pp2", dict(dp=2, pp=2), 4, dict(n_experts=4, n_layers=2), 8),
+            # three microbatches of two rows over dp=2: the middle one straddles
+            ("moe_dp2_pp2_m3", dict(dp=2, pp=2), 3, dict(n_experts=4, n_layers=2), 6)]
+# meshes that do not divide the model, which both packages refuse: (name,
+# mesh, config overrides, the port's message)
+UNEVEN = [("tp3_over_4_heads", dict(tp=3), {}, "tp=3 must divide n_heads=4"),
+          ("pp3_over_2_layers", dict(pp=3), dict(n_layers=2), "pp=3 must divide n_layers=2"),
+          ("ulysses_tp2_sp4_over_4_heads", dict(tp=2, sp=4), dict(sp_attention="ulysses"),
+           "sp=4 must divide the 2 heads of a tp rank for Ulysses")]
 
 
 def _rand(seed, *shape):
@@ -107,10 +115,6 @@ def world4():
     cases.append(("moe_dp2_tp2", programs.moe_case,
                   dict(dp=2, tp=2, capacity_factor=MOE_CF, **moe_inputs())))
     cases += forward_cases(FORWARD4)
-    _, ct, params, tokens = model_inputs(dict(n_experts=4, n_layers=2), 6)
-    cases.append(("moe_pp_uneven_raise", programs.forward_case,
-                  dict(mesh_config=MeshConfig(dp=2, pp=2), cfg=ct, params=params,
-                       tokens=tokens, num_microbatches=3)))
     return launch(programs.run_cases, 4, (cases, "cpu"), device="cpu", timeout=300)[0]
 
 
@@ -254,9 +258,36 @@ def test_forward_on_a_mesh_matches_jax(world, case, request, devices8):
     np.testing.assert_allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
 
 
-def test_moe_under_pp_raises_when_dp_does_not_divide_the_microbatches(world4):
-    assert world4["moe_pp_uneven_raise"] == (
-        "MoE under pp routes within each of the 3 microbatches, which needs dp=2 to divide them")
+def test_moe_under_pp_raises_when_dp_does_not_divide_the_microbatches(world4, devices8):
+    """Named for the refusal the port made before Queue C 3 was repaired.
+    It no longer raises: when dp=2 does not divide M=3, the middle
+    microbatch (global rows 2-3) straddles the two dp ranks, and each rank
+    routes it over all of its rows, as JAX does. The logits equal the
+    reference's within 2e-4."""
+    name, mesh, m, over, batch = FORWARD4[-1]
+    assert (m % mesh["dp"], batch // m) == (1, 2)
+    cj, _, params, tokens = model_inputs(over, batch)
+    jmesh = j_build_mesh(JMeshConfig(**mesh), devices8)
+    pj = J.shard_params(jax.tree.map(jnp.asarray, params), cj, jmesh)
+    want = np.asarray(jax.jit(partial(J.forward, cfg=cj, mesh=jmesh, num_microbatches=m))(
+        pj, jnp.asarray(tokens)))
+    assert not isinstance(world4[name], str), world4[name]
+    np.testing.assert_allclose(world4[name], want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("case", UNEVEN, ids=[c[0] for c in UNEVEN])
+def test_both_packages_refuse_a_mesh_that_does_not_divide(case, devices8):
+    """JAX raises in ``shard_params`` (``device_put`` of a shard that does
+    not divide) or in ``loss_fn`` (``shard_map`` of Ulysses heads); the
+    port raises in ``check_mesh``."""
+    _, mesh, over, message = case
+    cj, ct, params, tokens = model_inputs(over, 8)
+    jmesh = j_build_mesh(JMeshConfig(**mesh), devices8)
+    with pytest.raises(ValueError, match="divisible"):
+        pj = J.shard_params(jax.tree.map(jnp.asarray, params), cj, jmesh)
+        jax.jit(partial(J.loss_fn, cfg=cj, mesh=jmesh))(pj, jnp.asarray(tokens))
+    with pytest.raises(ValueError, match=message):
+        T.check_mesh(ct, tmesh.Mesh(MeshConfig(**mesh), 0, torch.device("cpu")))
 
 
 def test_tp_must_divide_the_model():

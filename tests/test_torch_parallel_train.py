@@ -2,7 +2,8 @@
 against the port's on 8 gloo ranks: configuration A (dp=2 x pp=2 x tp=2,
 dense, 4 layers, B=8, T=32, 4 microbatches), A with remat, and B (dp=2 x
 tp=2 x sp=2, MoE with 4 experts over tp, ring attention, 2 layers, B=4,
-T=32), each from the reference's own parameters and tokens (PRNGKey 0 and
+T=32), and moe_m3 (A's mesh, B's MoE model at vocab 96, B=6 in three
+microbatches, which dp=2 does not divide), each from the reference's own parameters and tokens (PRNGKey 0 and
 1), ``shard_params`` on each rank. The first step's loss within 1e-5 and
 every gradient, reduced and gathered to the full layout, within 1e-4 of
 ``jax.grad`` on the same mesh; a second SGD step's loss within 1e-5
@@ -26,7 +27,11 @@ from ray_tpu_torch.parallel import dryrun, launch
 LR = 0.1
 RUNS = {"A": dryrun.runs(8)[0], "A_remat": dataclasses.replace(
     dryrun.runs(8)[0], model=dataclasses.replace(dryrun.BASE, remat=True)),
-    "B": dryrun.runs(8)[1]}
+    "B": dryrun.runs(8)[1],
+    # MoE under pp where dp=2 does not divide M=3: the middle microbatch
+    # straddles the dp ranks and is routed over all of its rows
+    "moe_m3": dryrun.Run(dryrun.MeshConfig(dp=2, pp=2, tp=2), dataclasses.replace(
+        dryrun.MOE, vocab_size=96), 6, 32, microbatches=3)}
 
 
 def jax_config(run):
@@ -61,9 +66,9 @@ def port():
 @pytest.fixture(scope="module")
 def reference():
     """JAX's loss and gradients on the 8-device mesh, and the loss after one
-    optax.sgd step, for A and B (A's numbers hold for A_remat too)."""
+    optax.sgd step, for A, B and moe_m3 (A's numbers hold for A_remat too)."""
     out = {}
-    for name in ("A", "B"):
+    for name in ("A", "B", "moe_m3"):
         run = RUNS[name]
         cj, params, tokens = jax_inputs(run)
         mesh = j_build_mesh(JMeshConfig(**vars(run.mesh)), jax.devices()[:8])

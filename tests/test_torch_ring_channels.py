@@ -137,12 +137,21 @@ def test_ring_sigkill_mid_write_recovery(tmp_path):
         "    ch.put_bytes(b'm' * 512, timeout=5.0)\n"
         "    i += 1\n"
     )
+    # the producer's ring lies under a TMPDIR of its own, so no agent that
+    # another test process starts sweeps it before this test does
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    directory = str(tmp / "ray_tpu_torch_dag")
     proc = subprocess.Popen(
-        [sys.executable, "-c", code], stdout=subprocess.PIPE, text=True
+        [sys.executable, "-c", code],
+        stdout=subprocess.PIPE,
+        text=True,
+        env={**os.environ, "TMPDIR": str(tmp)},
     )
     try:
         path = proc.stdout.readline().strip()
         assert path.endswith(f".p{proc.pid}.ring")
+        assert os.path.dirname(path) == directory
         deadline = time.monotonic() + 15
         while not os.path.exists(path) and time.monotonic() < deadline:
             time.sleep(0.05)
@@ -160,14 +169,14 @@ def test_ring_sigkill_mid_write_recovery(tmp_path):
             pass
         reader.close()
         # dead-pid ring file is an orphan: the agent-start sweep reaps it
-        removed = sweep_orphan_rings()
+        removed = sweep_orphan_rings(directory=directory)
         assert path in removed
         assert not os.path.exists(path)
         # our own (live-pid) rings are never swept
-        own = ring_path("hotpath_live_probe")
+        own = os.path.join(directory, os.path.basename(ring_path("hotpath_live_probe")))
         ShmChannel(own, capacity=4096, create=True).close()
         try:
-            assert own not in sweep_orphan_rings()
+            assert own not in sweep_orphan_rings(directory=directory)
             assert os.path.exists(own)
         finally:
             os.unlink(own)
