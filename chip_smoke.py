@@ -115,6 +115,28 @@ passes or exits non-zero:
    with an unbroken run, failover p95. The paged kernel is also held
    against its plain version at the
    serving decode shape (max_batch 4, 8-token pages);
+5e. online RL (``ray_tpu_torch/rl/``; ``phase_rl``): bench.py's
+   ``rl_loop_bench`` traffic (2 rollout workers x 2 prompts a step, 6 prompt
+   and 6 new tokens, batch 4, 8 steps, seed 3, a publish every 2 steps) on
+   ``ModelConfig()`` bf16, the rollouts on ``ContinuousBatchingEngine``
+   (the paged kernel) and the trainer's SGD steps through ``loss_fn`` (the
+   flash forward, dQ and dK/dV kernels): the run fenced by the port's
+   ``HeadServer`` (WAL on), the rerun on the local ledger, losses bit-equal,
+   weights epoch 4 on every worker, nothing unaccounted, every parameter
+   and KV page on the card, each run's launches equal to what its steps
+   imply; samples/s, publish ms and publish-to-first-token ms; the bf16
+   flash forward and backward at the trainer's shape (B=4, T=11 padded to
+   one tile; the kernel and its lse also at the padded shape) and the paged
+   kernel at the rollout engine's (max_batch 2, 8-token pages) against
+   their plain versions; then an f32
+   loop of 2 steps on the card against the CPU's plain path, every
+   trajectory token-equal and the losses within 1e-4;
+5f. rllib (``ray_tpu_torch/rllib/``; ``phase_rllib``): PPO, DQN and IMPALA
+   at ``tests/test_rllib.py``'s configurations on the local runtime, each
+   learner on the card and its runners on the CPU: the learner's tensors on
+   the card, the mean return past the first iteration's by more than 10,
+   every loss finite, a PPO checkpoint restored equal on the card, IMPALA
+   with both rollouts in flight; env steps/s and SGD steps/s;
 6. runs the scheduler slice on the card against the port's CPU path, every
    output bit-identical: bench.py's kernel tier (1,024 nodes, 100,000
    requests) through ``hybrid_schedule_shapes``, with capacity recomputed on
@@ -144,7 +166,8 @@ passes or exits non-zero:
    ``sched_device_min_batch`` 0, node-agent and worker subprocesses that
    never touch the card before a task asks for it): bench.py's
    ``cluster_bench`` (two agents of 16 CPUs × 4 workers, 50 warm-up tasks,
-   two passes of 10,000 no-op tasks at 0.25 CPU, ``get`` in chunks of 500)
+   one pass of its two of 10,000 no-op tasks at 0.25 CPU, ``get`` in chunks
+   of 500)
    prints tasks/s, the head's rounds per pass, lease-cache hits and misses
    and the rounds' round/upload/kernel/readback ms (p50/p99); then, with
    every head round recorded, a functional workload whose every value is
@@ -165,7 +188,7 @@ passes or exits non-zero:
    placements/s, round p50/p99, divergence 0; every head and ring round of
    the runs, recorded on the card, replays equal on the CPU;
 10. runs ``run_elasticity_sim`` at bench.py's part (b) sizes (10,000
-   nodes, 200 parked shapes), 2 ticks of its 8: tick p50/p99, ``solve_path``,
+   nodes, 200 parked shapes), 1 tick of its 8: the tick's ms, ``solve_path``,
    every tick's ``solve_pack_counts`` on the card, each replayed on the
    CPU (per_node and placed equal, the residual within 1e-5);
 11. drives the autoscaler: in the local runtime on the card (256 nodes, a
@@ -180,7 +203,8 @@ passes or exits non-zero:
    tasks, kills the leader: the standby promotes onto the leader's port
    with its scheduler state on the card, a task and an actor created after
    the promotion return, and ``FAILOVER_MS`` is printed;
-13. serves the head's dashboard (``dashboard_port=0``, the standard
+13. serves the head's dashboard (first, while nvcc builds the kernels of
+   phase 1, since it needs none of them) (``dashboard_port=0``, the standard
    library's ``ThreadingHTTPServer``) over two agents, tasks, two actors
    and a STRICT_SPREAD group: every route fetched with ``urllib`` and held
    against the cluster's own state, a job submitted through the REST API
@@ -207,7 +231,8 @@ passes or exits non-zero:
    worker orphaned by its agent's death is found too; what is left after
    20 s is killed and the run fails naming it. On any exit, whatever is
    left below the script is killed;
-17. prints the kernel table as one JSON line, then the result line.
+17. prints every phase's seconds on one line, then the kernel table as one
+   JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -234,6 +259,8 @@ from ray_tpu_torch.llm.continuous import ContinuousBatchingEngine  # noqa: E402
 from ray_tpu_torch.llm.engine import GenerationConfig, LLMEngine  # noqa: E402
 from ray_tpu_torch.models import transformer as tfm  # noqa: E402
 from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
+    BLOCK_K,
+    BLOCK_Q,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_reference,
@@ -346,7 +373,38 @@ def gen(seed: int) -> torch.Generator:
 # ---------------------------------------------------------------------------
 # 1. card, build
 # ---------------------------------------------------------------------------
-def phase_card_and_build() -> None:
+def start_build():
+    """Starts ``_cuda.build_all()`` (one nvcc a source, all at once) in a
+    thread, so a phase that needs no kernel can run meanwhile; returns a
+    function that waits for it and gives (built, seconds), or raises what
+    the build raised."""
+    import threading
+
+    box = {}
+
+    def run():
+        t0 = time.monotonic()
+        try:
+            box["built"] = _cuda.build_all()
+        except BaseException as exc:  # noqa: BLE001 - re-raised by the join
+            box["exc"] = exc
+        box["s"] = time.monotonic() - t0
+
+    th = threading.Thread(target=run, name="nvcc-build")
+    th.start()
+
+    def join():
+        th.join()
+        if "exc" in box:
+            raise box["exc"]
+        return box["built"], box["s"]
+
+    return join
+
+
+def phase_card_and_build(build) -> None:
+    """The card's line, the kernels' build (waiting for ``build``, the join
+    that ``start_build()`` returns) and their ptxas report."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -354,9 +412,9 @@ def phase_card_and_build() -> None:
     print(smi.stdout.strip())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.monotonic()
-    built = _cuda.build_all()
-    print(f"build: {time.monotonic() - t0:.1f} s for {sorted(built) or 'nothing (cached)'}")
+    built, build_s = build()
+    print(f"build: {build_s:.1f} s for {sorted(built) or 'nothing (cached)'} "
+          "(begun beside the first phase)")
     for src in _cuda.SOURCES:
         log = _cuda._library_path(src).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else []:
@@ -1296,8 +1354,7 @@ def phase_elastic_train(device: str = "cuda", total_steps: int = 40, model=None)
             print(f"elastic progress {trainer.progress()}: {'; '.join(arenas)}", flush=True)
 
     try:
-        c.add_node({"CPU": 2.0, **gpu}, **node)
-        c.add_node({"CPU": 2.0, **gpu}, **node)
+        add_nodes(c, ({"CPU": 2.0, **gpu}, node), ({"CPU": 2.0, **gpu}, node))
         client = c.client()
         set_runtime(client)
         try:
@@ -1884,8 +1941,7 @@ def serve_cluster(device: str, nodes: int = 2, workers: int = 3):
     os.environ["NVIDIA_TF32_OVERRIDE"] = "0"  # f32 stays f32 in every replica
     c = _cluster(device)
     gpu = {"GPU": 1.0} if device == "cuda" else {}
-    for _ in range(nodes):
-        c.add_node({"CPU": 4.0, **gpu}, num_workers=workers)
+    add_nodes(c, *[({"CPU": 4.0, **gpu}, dict(num_workers=workers))] * nodes)
     client = c.client()
     set_runtime(client)
     return c, client
@@ -1903,38 +1959,51 @@ def close_cluster(c, client) -> None:
         c.shutdown()
         os.environ.pop("NVIDIA_TF32_OVERRIDE", None)
     # the replicas hold CUDA contexts; give their processes time to end
-    t0, left, named = time.perf_counter(), descendants(), False
+    t0, left, marks = time.perf_counter(), descendants(), [5.0, 15.0]
     while left and time.perf_counter() - t0 < 60.0:
         time.sleep(0.5)
         left = descendants()
-        if left and not named and time.perf_counter() - t0 > 5.0:
-            named = True
-            print("serve cluster: still running 5 s after the shutdown: " + "; ".join(
-                f"{pid} {proc_state(pid)} {cmd[-60:]}" for pid, cmd in left.items()), flush=True)
+        if left and marks and time.perf_counter() - t0 > marks[0]:
+            print(f"serve cluster: still running {marks.pop(0):.0f} s after the shutdown: "
+                  + "; ".join(f"{pid} {proc_state(pid)}: {cmd[-60:]}"
+                              for pid, cmd in left.items()), flush=True)
     if left:  # each worker dumps its threads' stacks on SIGUSR1
         for pid in left:
             try:
-                with open(f"/proc/{pid}/wchan") as f:
-                    wchan = f.read()
                 os.kill(pid, signal.SIGUSR1)
             except OSError:
-                wchan = "?"
+                pass
             print(f"serve cluster: pid {pid} still running {time.perf_counter() - t0:.1f} s "
-                  f"after the shutdown, waiting in {wchan!r}: {left[pid]}", flush=True)
+                  f"after the shutdown: {proc_state(pid)}: {left[pid]}", flush=True)
     else:
         print(f"serve cluster: every process ended {time.perf_counter() - t0:.1f} s after the "
               "shutdown")
 
 
 def proc_state(pid: int) -> str:
-    """A process's state and the kernel function it waits in."""
+    """What /proc shows of a process: its state, parent (pid and the end of
+    its command line) and its threads' names; '?' for what it cannot read."""
+    def read(path):
+        try:
+            with open(path) as f:
+                return f.read()
+        except OSError:
+            return None
+
+    status = dict(line.split(":\t", 1) for line in (read(f"/proc/{pid}/status") or "").splitlines()
+                  if ":\t" in line)
+    ppid = status.get("PPid", "?").strip()
+    parent = (read(f"/proc/{ppid}/cmdline") or "?").replace("\0", " ").strip()[-50:]
     try:
-        with open(f"/proc/{pid}/stat") as f:
-            state = f.read().rsplit(")", 1)[1].split()[0]
-        with open(f"/proc/{pid}/wchan") as f:
-            return f"{state}/{f.read() or '-'}"
+        tids = os.listdir(f"/proc/{pid}/task")
     except OSError:
-        return "gone"
+        tids = []
+    names = {}
+    for tid in tids:
+        name = (read(f"/proc/{pid}/task/{tid}/comm") or "?").strip()
+        names[name] = names.get(name, 0) + 1
+    return (f"state {status.get('State', '?').strip()}, ppid {ppid} ({parent}), threads "
+            + ", ".join(f"{k} x{v}" for k, v in sorted(names.items())))
 
 
 def replica_actors(name: str) -> list:
@@ -2463,6 +2532,264 @@ def phase_serving(device: str = "cuda", model=None) -> int:
                 + phase_router_fleet(device, model))
     finally:
         close_cluster(*cluster)
+
+
+# ---------------------------------------------------------------------------
+# 5e. online RL: bench.py's rl_loop_bench at ModelConfig()'s width
+# ---------------------------------------------------------------------------
+# bench.py's rl_loop_bench traffic: 2 rollout workers, 2 prompts each a step,
+# 6 prompt and 6 new tokens, batch 4, 8 steps, seed 3, a publish every 2
+RL_LOOP = dict(n_rollout_workers=2, prompts_per_step=2, prompt_len=6, max_new_tokens=6,
+               batch_size=4, total_steps=8, seed=3, publish_interval=2)
+
+
+def rl_counts() -> dict:
+    """The paged kernel's launches and the flash kernels' (fwd, dq, dkv)."""
+    return dict(paged=paged_attention_decode.launches, **read_launches())
+
+
+def rl_zero() -> None:
+    paged_attention_decode.launches = 0
+    zero_launches()
+
+
+def rl_run(cfg, params, lc, device: str, head_address=None):
+    """One ``OnlineRLLoop`` from ``params``: (result, launches counted from
+    zero over its run, the loop, every step's trained token block)."""
+    from ray_tpu_torch.rl import OnlineRLLoop
+
+    loop = OnlineRLLoop(cfg, params, lc, head_address=head_address, device=device)
+    try:
+        rl_zero()
+        res = loop.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = rl_counts()
+    finally:
+        loop.close()
+    blocks = [np.asarray(loop.feed._step_cache[s]["tokens"]) for s in sorted(loop.feed._step_cache)]
+    return res, launches, loop, blocks
+
+
+def on(tensors, device: str) -> bool:
+    return all(t.device.type == device for t in tensors)
+
+
+def rl_kernel_checks(cfg, lc, eng) -> None:
+    """The kernels at the shapes and dtype the RL path gives them, against
+    their plain versions: the trainer's flash forward and backward on
+    B=batch_size rows of prompt_len + max_new_tokens - 1 positions (zero-
+    padded to one tile by the wrapper; the kernel and its lse also at that
+    padded shape), and the rollout engine ``eng``'s paged decode step."""
+    b, t = lc.batch_size, lc.prompt_len + lc.max_new_tokens - 1
+    h, hkv, d, dtype = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype
+    atol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    flash_case(f"rl trainer shape B={b} T={t}", b, t, h, hkv, d, True, dtype, atol, 61)
+    wrapper_bwd_case(f"rl trainer shape B={b} T={t}", b, t, h, hkv, d, True, dtype, 62)
+    tp = t + -t % math.lcm(BLOCK_Q, BLOCK_K)
+    g = gen(63)
+    qg, kg, vg = (torch.nn.functional.pad(torch.randn(b * h, t, d, generator=g, device=DEV),
+                                          (0, 0, 0, tp - t)).to(dtype) for _ in range(3))
+    out, lse = flash_attention_forward(qg, kg, vg, True)
+    ref_out, ref_lse = flash_attention_reference(qg, kg, vg, True)
+    torch.cuda.synchronize()
+    e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+    print(f"flash kernel {str(dtype).rpartition('.')[2]} rl padded bh={b * h} T={t} -> {tp}: "
+          f"out err {e_out:.3e} (atol {atol}) lse err {e_lse:.3e} (atol 1e-3)")
+    check(e_out <= atol and e_lse <= 1e-3, f"flash kernel rl padded shape: {e_out}, {e_lse}")
+    kh, grp = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    lens = [t, lc.prompt_len + 1][: eng.B] + [1] * max(0, eng.B - 2)
+    args = paged_inputs(eng.B, kh, grp, d, eng.pool.n_pages, eng.page, eng.max_pages_per_seq,
+                        lens, dtype, 64)
+    paged_case(f"rl rollout shape (B={eng.B}, page {eng.page}, {eng.pool.n_pages} pages, "
+               f"P_max {eng.max_pages_per_seq})", args, eng.page,
+               2e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+def phase_rl(device: str = "cuda", model=None) -> dict:
+    """bench.py's ``rl_loop_bench`` with its traffic unchanged and its toy
+    model replaced by ``ModelConfig()`` bf16 (random weights from a seeded
+    generator): the fenced run against the port's ``HeadServer`` (WAL in a
+    temp directory), then the rerun on the local ledger. Losses bit-equal,
+    epoch 4 on every worker and engine, nothing unaccounted, every
+    parameter and KV page on the card, and each run's paged and flash
+    launches equal to what its steps imply. The kernels at the shapes and
+    dtype the run gave them against their plain versions
+    (``rl_kernel_checks``). Then an f32 loop of 2 steps
+    (one publish, TF32 off) on the card and on the CPU's plain path from
+    the same weights: every trajectory token-equal, losses within 1e-4.
+    Returns the fenced run's launches."""
+    import tempfile
+
+    from ray_tpu_torch.cluster.head import HeadServer
+    from ray_tpu_torch.rl import RLLoopConfig
+    from ray_tpu_torch.train import pytree
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    cfg = tfm.ModelConfig(**dict(model or {}))
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(7), device)
+    lc = RLLoopConfig(**RL_LOOP)
+    with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_rl_") as td:
+        head = HeadServer(port=0, use_device_scheduler=False,
+                          persist_path=os.path.join(td, "head"))
+        try:
+            res, launches, loop, _ = rl_run(cfg, params, lc, device, head.address)
+        finally:
+            head.shutdown()
+    ref, ref_launches, _, _ = rl_run(cfg, params, lc, device)
+    steps, layers = lc.total_steps, cfg.n_layers
+    trained = len(res["losses"])
+    # a rollout's two slots decode in lockstep: max_new - 1 decode steps
+    # after the prefill's first token, one paged launch a layer each; a
+    # train step launches each flash kernel once a layer
+    want = dict(paged=steps * lc.n_rollout_workers * (lc.max_new_tokens - 1) * layers,
+                fwd=trained * layers, dq=trained * layers, dkv=trained * layers)
+    pft, pub = res["publish_to_first_token_ms"], res["publish_ms"]
+    acct = res["accounting"]
+    print(f"rl loop (ModelConfig() {str(cfg.dtype).rpartition('.')[2]}, {steps} steps) on "
+          f"{'; '.join(card_line().splitlines())}: rl_samples_per_s {res['samples_per_s']:.2f} "
+          f"(rerun {ref['samples_per_s']:.2f}); publish_ms mean {sum(pub) / len(pub):.2f} "
+          f"({', '.join(f'{x:.2f}' for x in pub)}); publish-to-first-token ms mean "
+          f"{sum(pft) / len(pft):.2f} ({', '.join(f'{x:.2f}' for x in pft)}); weights_epoch "
+          f"{res['weights_epoch']}; stale_dropped_frac {res['stale_dropped_frac']}; "
+          f"accounting {acct}; losses {res['losses']}; launches {launches} (expected {want}; "
+          f"rerun {ref_launches}); wall {res['wall_s']:.2f} s, rerun {ref['wall_s']:.2f} s")
+    check(res["losses"] == ref["losses"], f"rl: rerun losses {ref['losses']} differ from the "
+          f"fenced run's {res['losses']}")
+    check(trained == steps, f"rl: {trained} of {steps} steps trained")
+    check(res["weights_epoch"] == ref["weights_epoch"] == steps // lc.publish_interval,
+          f"rl: weights_epoch {res['weights_epoch']}, rerun {ref['weights_epoch']}")
+    epoch = res["weights_epoch"]
+    check(all(w.weights_epoch == epoch and w.engine.model_id == f"epoch-{epoch}"
+              for w in loop.workers),
+          f"rl: workers at {[(w.weights_epoch, w.engine.model_id) for w in loop.workers]}")
+    check(acct["unaccounted"] == 0 and ref["accounting"]["unaccounted"] == 0,
+          f"rl: unaccounted trajectories {acct}, rerun {ref['accounting']}")
+    check(res["stale_dropped_frac"] == ref["stale_dropped_frac"],
+          f"rl: stale_dropped_frac {res['stale_dropped_frac']}, rerun {ref['stale_dropped_frac']}")
+    tensors = pytree.leaves(loop.params)
+    for w in loop.workers:
+        tensors += pytree.leaves(w.engine.params) + [w.engine.pool.k, w.engine.pool.v]
+    check(on(tensors, device), f"rl: a parameter or KV page off {device}")
+    check(all(math.isfinite(x) for x in res["losses"]), f"rl: losses {res['losses']}")
+    if device == "cuda":
+        check(launches == want and ref_launches == want,
+              f"rl launches {launches}, rerun {ref_launches}, expected {want}")
+        rl_kernel_checks(cfg, lc, loop.workers[0].engine)
+
+    # f32: the card against the CPU's plain path from the same weights
+    f32 = tfm.ModelConfig(**dict(model or {}, dtype=torch.float32))
+    p32 = tfm.init_params(f32, torch.Generator().manual_seed(7), "cpu")
+    lc32 = RLLoopConfig(**dict(RL_LOOP, total_steps=2))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, _, _, card_blocks = rl_run(f32, p32, lc32, device)
+        cpu, _, _, cpu_blocks = rl_run(f32, p32, lc32, "cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    loss_err = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    same = len(card_blocks) == len(cpu_blocks) == 2 and all(
+        np.array_equal(a, b) for a, b in zip(card_blocks, cpu_blocks))
+    print(f"rl f32 (2 steps, one publish) {device} vs CPU: trajectories token-equal {same}; "
+          f"losses {card['losses']} vs {cpu['losses']}, max err {loss_err:.3g}")
+    check(same, "rl f32: a trajectory on the card differs from the CPU's")
+    check(card["weights_epoch"] == cpu["weights_epoch"] == 1, "rl f32: one publish expected")
+    check(loss_err <= 1e-4, f"rl f32: losses differ by {loss_err:.3g} (tolerance 1e-4)")
+    print(f"rl phase: {time.perf_counter() - t0:.1f} s")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 5f. rllib: PPO, DQN and IMPALA with their learners on the card
+# ---------------------------------------------------------------------------
+class _SgdClock:
+    """Counts and times (synced) a learner's update calls."""
+
+    def __init__(self, algo, name: str, device: str):
+        self.n, self.s, self.device = 0, 0.0, device
+        inner = getattr(algo, name)
+
+        def timed(*args):
+            t = time.perf_counter()
+            out = inner(*args)
+            if self.device == "cuda":
+                torch.cuda.synchronize()
+            self.s += time.perf_counter() - t
+            self.n += 1
+            return out
+
+        setattr(algo, name, timed)
+
+
+def rllib_learn(label: str, algo, iters: int, steps_key: str, clock: _SgdClock, device: str):
+    from ray_tpu_torch.train import pytree
+
+    t = time.perf_counter()
+    results = [algo.train() for _ in range(iters)]
+    wall = time.perf_counter() - t
+    returns = [r["episode_return_mean"] for r in results]
+    first, last = returns[0], returns[-1]
+    env_steps = sum(r[steps_key] for r in results)
+    losses = [r.get("total_loss", r.get("td_loss")) for r in results]
+    print(f"rllib {label} on {'; '.join(card_line().splitlines())}: {iters} iterations, "
+          f"episode return mean {first:.1f} -> {last:.1f} "
+          f"({', '.join(f'{x:.1f}' for x in returns)}); "
+          f"env steps/s {env_steps / wall:.1f} ({env_steps} steps, {wall:.2f} s); "
+          f"SGD steps/s {clock.n / max(clock.s, 1e-9):.1f} ({clock.n} steps, {clock.s:.3f} s)")
+    tensors = pytree.leaves(algo.params) + pytree.leaves(algo.opt_state)
+    check(on(tensors, device), f"rllib {label}: a learner tensor off {device}")
+    check(last > first + 10, f"rllib {label}: mean return {first:.1f} -> {last:.1f}, not > +10")
+    check(all(x is not None and math.isfinite(x) for x in losses), f"rllib {label}: {losses}")
+    return results
+
+
+def phase_rllib(device: str = "cuda") -> None:
+    """``tests/test_rllib.py``'s three learners on the local runtime, each
+    learner on the card (runners act on the CPU with host copies of the
+    parameters): PPO 8 iterations of 2 runners x 256 steps (seed 3), DQN
+    12 of 2 x 128 with 48 SGD steps of 64 (seed 1), IMPALA 8 of 2 x 192
+    with 4 updates (seed 5). Each learner's tensors on the card, its mean
+    return past the first iteration's by more than 10, every loss finite;
+    a PPO checkpoint restores to equal parameters on the card; IMPALA keeps
+    both rollouts in flight. Prints env steps/s and SGD steps/s."""
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.rllib import DQN, DQNConfig, IMPALA, ImpalaConfig, PPO, PPOConfig
+    from ray_tpu_torch.train import pytree
+
+    _platform_env(device)
+    t0 = time.perf_counter()
+    rtt.init(num_nodes=1, resources_per_node={"CPU": 4.0, "memory": 1e9})
+    try:
+        ppo = PPO(PPOConfig(num_env_runners=2, rollout_steps=256, seed=3, device=device))
+        rllib_learn("PPO", ppo, 8, "num_env_steps", _SgdClock(ppo, "_sgd_step", device), device)
+        with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_ppo_") as td:
+            ppo.save(os.path.join(td, "ckpt"))
+            back = PPO(PPOConfig(num_env_runners=1, rollout_steps=64, device=device))
+            back.restore(os.path.join(td, "ckpt"))
+        a, b = pytree.leaves(back.params), pytree.leaves(ppo.params)
+        check(on(a, device) and all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"rllib PPO: the restored parameters differ or lie off {device}")
+        dqn = DQN(DQNConfig(num_env_runners=2, rollout_steps=128, sgd_steps_per_iter=48,
+                            batch_size=64, eps_decay_iters=6, seed=1, device=device))
+        rllib_learn("DQN", dqn, 12, "num_env_steps", _SgdClock(dqn, "_sgd_step", device), device)
+        impala = IMPALA(ImpalaConfig(num_env_runners=2, rollout_steps=192, updates_per_iter=4,
+                                     seed=5, device=device))
+        rllib_learn("IMPALA", impala, 8, "num_env_steps", _SgdClock(impala, "_update", device),
+                    device)
+        check(len(impala._in_flight) == 2,
+              f"rllib IMPALA: {len(impala._in_flight)} rollouts in flight, not 2")
+        # let the rollouts in flight end before the runtime does: a runner
+        # thread still inside torch when the process exits aborts it
+        rtt.wait(list(impala._in_flight), num_returns=2, timeout=120)
+    finally:
+        rtt.shutdown()
+    print(f"rllib phase: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3278,6 +3605,16 @@ def _cluster(device: str, **kwargs):
     return c
 
 
+def add_nodes(c, *nodes) -> list:
+    """Starts one agent per ``(resources, add_node keyword arguments)`` all
+    at once, then waits until every agent of ``c`` is up: an agent's start
+    (its imports, its zygote) takes seconds, and the agents of one cluster
+    need not start one after the other. Returns the node ids in order."""
+    ids = [c.add_node(res, wait=False, **kw) for res, kw in nodes]
+    c.wait_for_nodes(len(c._agents))
+    return ids
+
+
 def _trace_leases():
     """Traces the client's lease cache by wrapping ``_TaskLeaseManager``'s
     and ``_TaskLeaseChannel``'s methods (nothing changes in the package):
@@ -3365,8 +3702,7 @@ def cluster_burst(label: str, device: str, num_tasks: int = 10_000, passes: int 
     marks = _hist_marks()  # the head's rounds of this cluster, warm-up included
     leases, untrace = _trace_leases()
     try:
-        c.add_node({"CPU": 16.0}, num_workers=4)
-        c.add_node({"CPU": 16.0}, num_workers=4)
+        add_nodes(c, *[({"CPU": 16.0}, dict(num_workers=4))] * 2)
         client = c.client()
         set_runtime(client)
         try:
@@ -3632,7 +3968,8 @@ def phase_cluster():
     ring_records, ring_impl, ring_restore = _record_ring_rounds()
     restores = [ring_restore]
     try:
-        card, card_rounds, card_hits, card_misses = cluster_burst("card", "cuda")
+        # one pass of bench.py's two, as on the CPU path below: the smoke's time
+        card, card_rounds, card_hits, card_misses = cluster_burst("card", "cuda", passes=1)
         card_ring = list(ring_records)
         errors.check("cluster burst on the card")
         records, impl, restore = _record_rounds()
@@ -3642,8 +3979,7 @@ def phase_cluster():
             with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_head_") as d:
                 c = _cluster("cuda", persist_path=os.path.join(d, "head_state.pkl"))
                 try:
-                    c.add_node({"CPU": 16.0}, num_workers=4)
-                    c.add_node({"CPU": 16.0}, num_workers=4)
+                    add_nodes(c, *[({"CPU": 16.0}, dict(num_workers=4))] * 2)
                     client = c.client()
                     set_runtime(client)
                     try:
@@ -3675,7 +4011,6 @@ def phase_cluster():
         os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
         cpu_ring, _, cpu_ring_restore = _record_ring_rounds()
         try:
-            # one pass on the CPU path (the card's burst runs two) keeps the smoke in its time
             cpu, cpu_rounds, cpu_hits, cpu_misses = cluster_burst("CPU path", "cpu", passes=1)
         finally:
             cpu_ring_restore()
@@ -3836,8 +4171,10 @@ def phase_elasticity(device: str = "cuda", num_nodes: int = 10_000, ticks: int =
           "elasticity: a tick's solve failed over to first-fit")
     check(len(solves) >= ticks and all(s[2] == device for s in solves),
           f"elasticity: {len(solves)} solves, on {sorted({s[2] for s in solves})}")
+    tick = (f"tick {out['tick_p50_ms']:.3f} ms (the first, cold)" if ticks == 1 else
+            f"tick p50 {out['tick_p50_ms']:.3f} ms p99 {out['tick_p99_ms']:.3f} ms")
     print(f"elasticity [{device}] {num_nodes} nodes, {task_shapes} parked shapes: {ticks} ticks, "
-          f"tick p50 {out['tick_p50_ms']:.3f} ms p99 {out['tick_p99_ms']:.3f} ms, "
+          f"{tick}, "
           f"{out['ticks_per_s']} ticks/s, solve_path {out['solve_path']}, demand rows "
           f"{out['demand_rows']}, serve hints {out['serve_hints']}, world hints "
           f"{out['world_hints']}; solve shape {solves[-1][0][1].shape[0]} x "
@@ -3974,8 +4311,7 @@ def autoscaler_cluster(device: str):
         try:
             check(c.head.sched_device.type == device,
                   f"autoscaler cluster: the controller solves on {c.head.sched_device}")
-            c.add_node({"CPU": 2.0}, num_workers=1)
-            c.add_node({"CPU": 2.0}, num_workers=1)
+            add_nodes(c, *[({"CPU": 2.0}, dict(num_workers=1))] * 2)
             client = c.client()
             set_runtime(client)
             try:
@@ -4058,8 +4394,7 @@ def phase_standby(device: str = "cuda", num_tasks: int = 300):
         with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_standby_") as d:
             c = _cluster(device, persist_path=os.path.join(d, "head_state.pkl"))
             try:
-                c.add_node({"CPU": 4.0}, num_workers=2)
-                c.add_node({"CPU": 4.0}, num_workers=2)
+                add_nodes(c, *[({"CPU": 4.0}, dict(num_workers=2))] * 2)
                 client = c.client()
                 set_runtime(client)
                 try:
@@ -4296,8 +4631,7 @@ def phase_dashboard(device: str = "cuda"):
     try:
         c = _cluster(device, dashboard=True)
         try:
-            c.add_node({"CPU": 4.0}, num_workers=2)
-            c.add_node({"CPU": 4.0}, num_workers=2)
+            add_nodes(c, *[({"CPU": 4.0}, dict(num_workers=2))] * 2)
             client = c.client()
             set_runtime(client)
             try:
@@ -4481,8 +4815,7 @@ def phase_dag(device: str = "cuda"):
     try:
         c = _cluster(device)
         try:
-            c.add_node({"CPU": 16.0}, num_workers=4)
-            c.add_node({"CPU": 16.0}, num_workers=4)
+            add_nodes(c, *[({"CPU": 16.0}, dict(num_workers=4))] * 2)
             client = c.client()
             set_runtime(client)
             try:
@@ -4598,9 +4931,9 @@ def _xfer_mode(rtt, device: str, plane: bool) -> dict:
     t_mode = time.perf_counter()
     c = Cluster(use_device_scheduler=False)
     try:
-        c.add_node({"CPU": 2.0, "srcres": 1.0, **gpu}, num_workers=1, store_capacity=cap)
-        dst = c.add_node({"CPU": 2.0, "dstres": 1.0, **gpu}, num_workers=1,
-                         store_capacity=cap)
+        _, dst = add_nodes(
+            c, ({"CPU": 2.0, "srcres": 1.0, **gpu}, dict(num_workers=1, store_capacity=cap)),
+            ({"CPU": 2.0, "dstres": 1.0, **gpu}, dict(num_workers=1, store_capacity=cap)))
         client = c.client()
         set_runtime(client)
         try:
@@ -4958,57 +5291,79 @@ def phase_processes(grace_s: float = 20.0) -> None:
           f"({time.perf_counter() - t0:.1f} s after the last phase)")
 
 
+PHASE_S: dict = {}
+
+
+def timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds kept under its name for the
+    phase-seconds line."""
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        name = fn.__name__.removeprefix("phase_")
+        PHASE_S[name] = round(PHASE_S.get(name, 0.0) + time.perf_counter() - t, 1)
+
+
 def main() -> None:
     become_subreaper()
     atexit.register(stop_descendants, 2.0)
-    phase_card_and_build()
-    flash_row = phase_flash()
-    bwd_rows = phase_flash_backward()
-    paged_row = phase_paged()
-    flash_launches = phase_forward()
-    paged_launches, tps = phase_serve()
-    train_launches, step_ms, train_tps, train_losses = phase_train()
-    phase_train_f32()
-    par = phase_parallel(step_ms, train_tps)
-    lib_launches = [phase_trainer(train_losses), phase_elastic_train(), phase_tune()]
+    build = start_build()
+    timed(phase_dashboard)  # needs no kernel: it runs while nvcc builds them
+    timed(phase_card_and_build, build)
+    flash_row = timed(phase_flash)
+    bwd_rows = timed(phase_flash_backward)
+    paged_row = timed(phase_paged)
+    flash_launches = timed(phase_forward)
+    paged_launches, tps = timed(phase_serve)
+    train_launches, step_ms, train_tps, train_losses = timed(phase_train)
+    timed(phase_train_f32)
+    par = timed(phase_parallel, step_ms, train_tps)
+    lib_launches = [timed(phase_trainer, train_losses), timed(phase_elastic_train),
+                    timed(phase_tune)]
     trainer_launches = {k: sum(x[k] for x in lib_launches) for k in ("fwd", "dq", "dkv")}
-    wide_rows = phase_wide_heads()
-    llm = phase_llm_engine()
-    disagg = phase_llm_disagg()
-    serve_launches = phase_serving()
-    phase_scheduler()
-    phase_runtime()
-    phase_cluster()
-    phase_sim()
-    phase_elasticity(ticks=2)  # bench.py's 8 ticks cut to 2 to keep the smoke in its time
-    phase_autoscaler()
-    phase_standby()
-    phase_dashboard()
-    phase_dag()
-    phase_device_xfer()
-    phase_processes()
+    wide_rows = timed(phase_wide_heads)
+    llm = timed(phase_llm_engine)
+    disagg = timed(phase_llm_disagg)
+    serve_launches = timed(phase_serving)
+    rl_launches = timed(phase_rl)
+    timed(phase_rllib)
+    timed(phase_scheduler)
+    timed(phase_runtime)
+    timed(phase_cluster)
+    timed(phase_sim)
+    timed(phase_elasticity, ticks=1)  # bench.py's 8 ticks cut to 1 to keep the smoke in its time
+    timed(phase_autoscaler)
+    timed(phase_standby)
+    timed(phase_dag)
+    timed(phase_device_xfer)
+    timed(phase_processes)
     kernels = [
         dict(name="paged_attention_decode", route="cuda",
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/paged_attention.py:102",
              launches=paged_launches, **paged_row, wide_shape=wide_rows["paged"],
-             serve_launches=serve_launches),
+             serve_launches=serve_launches, rl_launches=rl_launches["paged"]),
         dict(name="flash_attention_fwd", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",
              launches=flash_launches, **flash_row, wide_shape=wide_rows["fwd"],
-             mesh_launches=par["fwd"], trainer_launches=trainer_launches["fwd"]),
+             mesh_launches=par["fwd"], trainer_launches=trainer_launches["fwd"],
+             rl_launches=rl_launches["fwd"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:230",
              launches=train_launches["dq"], **bwd_rows["dq"], wide_shape=wide_rows["dq"],
-             mesh_launches=par["dq"], trainer_launches=trainer_launches["dq"]),
+             mesh_launches=par["dq"], trainer_launches=trainer_launches["dq"],
+             rl_launches=rl_launches["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:247",
              launches=train_launches["dkv"], **bwd_rows["dkv"], wide_shape=wide_rows["dkv"],
-             mesh_launches=par["dkv"], trainer_launches=trainer_launches["dkv"]),
+             mesh_launches=par["dkv"], trainer_launches=trainer_launches["dkv"],
+             rl_launches=rl_launches["dkv"]),
     ]
+    print(f"phase seconds: {json.dumps(PHASE_S)}; total {sum(PHASE_S.values()):.1f} s")
     print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s; "
           f"mesh train {par['step_ms']:.2f} ms/step, {par['tps']:.1f} tokens/s; "
           f"LLMEngine decode {llm['tps']:.1f} tokens/s (MoE {llm['moe_tps']:.1f}); hand-off "

@@ -3,7 +3,8 @@
 Ports what ``ray_tpu/llm/continuous.py`` and ``ray_tpu/llm/engine.py``
 draw from ``jax.random`` (``PRNGKey``, ``fold_in``, ``categorical``) and
 what the scheduler draws (``uniform``, and ``randint`` at
-``ray_tpu/scheduler/hybrid.py:248``):
+``ray_tpu/scheduler/hybrid.py:248``), and the ``normal`` draws of
+``ray_tpu/rllib/ppo.py::dense_init``:
 threefry2x32 as in
 ``jax/_src/prng.py`` with ``jax_threefry_partitionable=True`` (the
 default in jax 0.9), the bits-to-float mapping of ``uniform``, and the
@@ -13,12 +14,17 @@ torch has little ``uint32`` arithmetic, so every 32-bit word is an int64
 tensor holding a value in ``[0, 2**32)``, masked after each add and shift.
 A key is an int64 tensor of shape ``[..., 2]``; leading dimensions batch
 independent keys, which is how the engine samples every slot in one call.
-Bits, uniforms and randint draws are bit-identical to jax's (``tests/test_torch_jaxrng.py``).
+Bits, uniforms and randint draws are bit-identical to jax's (``tests/test_torch_jaxrng.py``);
+``normal`` writes out XLA's single-precision ``erf_inv`` in its order of
+operations and holds within 1e-6 of ``jax.random.normal``
+(``tests/test_torch_rllib.py``): its ``log1p`` and ``sqrt`` may differ by
+an ulp, as ``gumbel``'s ``log`` may.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -138,3 +144,40 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     ``[*logits.shape[:-1], 2]``."""
     shape = tuple(logits.shape) if key.dim() == 1 else (logits.shape[-1],)
     return torch.argmax(gumbel(key, shape) + logits, dim=-1)
+
+
+# XLA's ErfInv32 (Giles' single-precision approximation): the polynomial
+# coefficients for w < 5 and for w >= 5, highest degree first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_F32_MAX = 3.4028234663852886e38
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` on f32 as XLA expands it: ``w = -log1p(-x*x)``,
+    a degree-8 polynomial in ``w - 2.5`` (w < 5) or ``sqrt(w) - 3``,
+    times ``x``; ``+-1`` maps to ``+-`` the largest float. ``x`` is f32."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coefficient(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype, device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype, device=x.device))
+
+    # each Horner step ``c + p * w`` is rounded once, as XLA contracts it
+    # into a fused multiply-add: the f32 product is exact in f64
+    p, wd = coefficient(0), w.double()
+    for i in range(1, len(_ERFINV_LT5)):
+        p = (p.double() * wd + coefficient(i).double()).float()
+    return torch.where(x.abs() == 1.0, x * _F32_MAX, p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in f32 (``_normal_real``): ``sqrt(2) *
+    erf_inv(u)`` of a uniform ``u`` on ``(nextafter(-1, 0), 1)``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(np.sqrt(2), dtype=torch.float32, device=key.device) * erf_inv(u)

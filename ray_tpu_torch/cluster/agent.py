@@ -1431,28 +1431,44 @@ class NodeAgent:
             )
             return
         if spec.kind == "actor_creation":
+            self._create_actor_on(spec, handle, alloc, tainted=bool(spec.runtime_env),
+                                  backfill=True)
+            return
+        self._run_on_worker(spec, handle, alloc)
+
+    def _create_actor_on(self, spec: LeaseRequest, handle: _WorkerHandle, alloc,
+                         tainted: bool, backfill: bool) -> None:
+        """Pin ``handle`` to the actor and push its creation. The worker's
+        push lock is held from before the actor's methods can find the
+        worker until the creation has been pushed: a method lease drained
+        in between (the backfill can take a fork) waits for it instead of
+        reaching the worker ahead of the instance (the reference releases
+        the mapping first, and such a method fails with the worker's
+        ``KeyError``; Queue C 13)."""
+        with handle.lock:
             with self._lock:
                 handle.actor_id = spec.actor_id
-                if spec.runtime_env:
+                if tainted:
                     # env persists for the actor's life: deny later reuse
                     handle.env_tainted = True
                 self._actor_workers[spec.actor_id] = handle.worker_id
                 # kept for head-restart re-registration (_node_info):
                 # the head rebuilds ActorInfo/name bindings from this
                 self._actor_meta[spec.actor_id] = dict(spec.actor_meta or {})
-            # an actor pins its worker for life; backfill the pool 1:1 so
-            # the free pool never shrinks below num_workers (the reference
-            # starts dedicated worker processes per actor on demand,
-            # worker_pool.cc StartWorkerProcess) — the previous total-count
-            # cap starved the Nth actor creation once N-1 actors held all
-            # the workers. Workers still warming (prestarted or a peer
-            # creation's backfill) count as free: the hole they will fill
-            # is already covered.
-            with self._idle_cv:
-                free = len(self._idle) + self._spawns_pending
-            if free < self._num_workers:
-                self._spawn_worker()
-        self._run_on_worker(spec, handle, alloc)
+            if backfill:
+                # an actor pins its worker for life; backfill the pool 1:1 so
+                # the free pool never shrinks below num_workers (the reference
+                # starts dedicated worker processes per actor on demand,
+                # worker_pool.cc StartWorkerProcess) — the previous total-count
+                # cap starved the Nth actor creation once N-1 actors held all
+                # the workers. Workers still warming (prestarted or a peer
+                # creation's backfill) count as free: the hole they will fill
+                # is already covered.
+                with self._idle_cv:
+                    free = len(self._idle) + self._spawns_pending
+                if free < self._num_workers:
+                    self._spawn_worker()
+            self._run_on_worker(spec, handle, alloc, serialize=False)
 
     def _dispatch_pip_task(self, spec: LeaseRequest, alloc) -> None:
         """Route a lease carrying a pip runtime env to a worker bound to
@@ -1513,11 +1529,9 @@ class NodeAgent:
             )
             return
         if spec.kind == "actor_creation":
-            with self._lock:
-                handle.actor_id = spec.actor_id
-                handle.env_tainted = True  # env-bound worker: never reuse
-                self._actor_workers[spec.actor_id] = handle.worker_id
-                self._actor_meta[spec.actor_id] = dict(spec.actor_meta or {})
+            # env-bound worker: never reuse
+            self._create_actor_on(spec, handle, alloc, tainted=True, backfill=False)
+            return
         self._run_on_worker(spec, handle, alloc)
 
     def _pop_pip_worker(

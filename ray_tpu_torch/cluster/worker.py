@@ -1383,8 +1383,8 @@ class Worker:
                 except RpcError:
                     # a dropped seal would orphan the object in the head's
                     # directory (no location, no holder) — keep the batch
-                    # and retry; if the agent is gone for good the orphan
-                    # check in serve_forever exits this process
+                    # and retry; if the agent is gone for good the parent
+                    # watch (_exit_with_parent) exits this process
                     logger.warning(
                         "agent unreachable; retrying %d direct seals",
                         len(seals),
@@ -1961,14 +1961,16 @@ class Worker:
                 self._env_undo = lambda: None
         return {"ok": True}
 
-    def serve_forever(self, parent: int) -> None:
-        while True:
-            time.sleep(1.0)
-            # the process that started this one (agent or zygote) died: an
-            # orphan is re-parented to init or to a subreaper, so test for
-            # a change of parent, not for pid 1; don't linger
-            if os.getppid() != parent:
-                os._exit(0)
+
+
+def _exit_with_parent(parent: int) -> None:
+    """Ends this process once the process that started it (agent or
+    zygote) has died: an orphan is re-parented to init or to a subreaper,
+    so test for a change of parent, not for pid 1; don't linger."""
+    while True:
+        time.sleep(1.0)
+        if os.getppid() != parent:
+            os._exit(0)
 
 
 def run_worker(
@@ -1990,6 +1992,12 @@ def run_worker(
     import signal
 
     faulthandler.register(signal.SIGUSR1, all_threads=True)
+    # the parent watch starts before the Worker registers with its agent:
+    # the registration's retries would outlive a dead agent by ~20-30 s
+    watch = threading.Thread(
+        target=_exit_with_parent, args=(parent,), name="parent-watch", daemon=True
+    )
+    watch.start()
     worker = Worker(agent_address, worker_id, store_path)
     prof_dir = os.environ.get("RAY_TPU_PROFILE_WORKER")
     if prof_dir:
@@ -2006,7 +2014,7 @@ def run_worker(
             )
 
         _sig.signal(_sig.SIGUSR2, _dump)
-    worker.serve_forever(parent)
+    watch.join()  # serve until the parent dies
 
 
 def seal_local_value(value: Any, owner: str = "") -> Optional[str]:

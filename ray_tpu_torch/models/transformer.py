@@ -141,10 +141,13 @@ def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str
     return _to_tensor(np.asarray(tree), device)
 
 
-def params_to(tree: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """A parameter dict with every tensor moved to ``device``."""
+def params_to(tree: Any, device: torch.device) -> Any:
+    """A parameter tree (dicts and lists of tensors) with every tensor moved
+    to ``device``."""
     if isinstance(tree, dict):
         return {k: params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to(v, device) for v in tree]
     return tree.to(device)
 
 

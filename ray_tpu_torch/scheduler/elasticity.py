@@ -562,8 +562,12 @@ def build_plan(
                 # leases off before the drain deadline instead of the
                 # kill path losing them. Busy-without-leases (actors,
                 # serve replicas) has nothing migrate_node_leases can
-                # move, so it never consolidation-retires.
-                if total_missing > 0 or leases <= 0:
+                # move, so it never consolidation-retires. Demand the
+                # solve placed on hypothetical nodes was not placed on the
+                # live fleet: retiring a busy node then would only make
+                # the next tick provision its replacement (the reference
+                # counts such demand as placed and retires; Queue C 11).
+                if total_missing > 0 or hypo_used > 0 or leases <= 0:
                     continue
                 used = np.maximum(snap.totals[i] - snap.avail[i], 0.0)
                 rest = (

@@ -26,7 +26,7 @@ from __future__ import annotations
 import operator
 import time
 from functools import reduce
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -45,18 +45,31 @@ def model_config(config: Dict[str, Any]) -> tfm.ModelConfig:
     return tfm.ModelConfig(**kw)
 
 
+def adam_init(params: Any) -> Dict[str, Any]:
+    """``optax.adam``'s state for ``params``: zero moments, count 0, on the
+    parameters' device."""
+    return {
+        "m": pytree.tree_map(torch.zeros_like, params),
+        "v": pytree.tree_map(torch.zeros_like, params),
+        "t": torch.zeros((), dtype=torch.int32, device=pytree.leaves(params)[0].device),
+    }
+
+
+def value_and_grad(fn: Callable, params: Any, has_aux: bool = False) -> Tuple[Any, List]:
+    """(``fn(params)``, the gradient of its loss in ``pytree.leaves`` order),
+    as ``jax.value_and_grad``: with ``has_aux`` ``fn`` returns ``(loss,
+    aux)``. ``params``' own tensors are left untouched."""
+    leaves, treedef = pytree.flatten(params)
+    ps = [x.detach().requires_grad_() for x in leaves]
+    out = fn(pytree.unflatten(treedef, ps))
+    return out, list(torch.autograd.grad(out[0] if has_aux else out, ps))
+
+
 def lm_init(config: Dict[str, Any]) -> Dict[str, Any]:
     cfg = model_config(config)
     dev = torch.device(config.get("device", "cuda"))
     params = tfm.init_params(cfg, torch.Generator().manual_seed(int(config["seed"])), dev)
-    return {
-        "params": params,
-        "opt": {
-            "m": pytree.tree_map(torch.zeros_like, params),
-            "v": pytree.tree_map(torch.zeros_like, params),
-            "t": torch.zeros((), dtype=torch.int32, device=dev),
-        },
-    }
+    return {"params": params, "opt": adam_init(params)}
 
 
 def lm_tokens(config: Dict[str, Any], step: int, shard: int) -> torch.Tensor:
@@ -75,11 +88,9 @@ def shard_partial(state: Dict[str, Any], step: int, shard: int, virtual_shards: 
     (fwd, dq, dkv) that is zero elsewhere: the sum over the shards gives
     each shard's own launches."""
     cfg = model_config(config)
-    leaves, treedef = pytree.flatten(state["params"])
-    ps = [x.detach().requires_grad_() for x in leaves]
+    tokens = lm_tokens(config, step, shard)
     before = launch_counts()
-    loss = tfm.loss_fn(pytree.unflatten(treedef, ps), lm_tokens(config, step, shard), cfg)
-    grads = list(torch.autograd.grad(loss, ps))
+    loss, grads = value_and_grad(lambda p: tfm.loss_fn(p, tokens, cfg), state["params"])
     after = launch_counts()
     launches = torch.zeros((int(virtual_shards), len(KERNELS)), dtype=torch.int64)
     launches[shard] = torch.tensor([after[k] - before[k] for k in KERNELS])

@@ -531,3 +531,77 @@ def test_stale_epoch_rpc_rejected_after_head_restart(tmp_path):
             client.close()
     finally:
         c.shutdown()
+
+
+def test_actor_method_waits_for_the_creation_push():
+    """Queue C 13: the agent publishes an actor's worker before it pushes
+    the creation, and the creation's backfill can take a fork in between;
+    a method lease drained meanwhile must reach the worker after the
+    creation, never ahead of the instance (the worker's KeyError that
+    ``chip_smoke.py``'s standby phase met after a promotion)."""
+    import threading
+
+    from ray_tpu_torch.cluster.agent import NodeAgent, _WorkerHandle
+    from ray_tpu_torch.cluster.common import LeaseRequest
+
+    pushed = []
+
+    class _Client:
+        def call(self, method, req, timeout=None):
+            pushed.append(req["kind"])
+            return {"status": "ok"}
+
+    handle = _WorkerHandle("w1", proc=None)
+    handle.client = _Client()
+    published = threading.Event()
+
+    class _A:
+        _dispatch_to_worker = NodeAgent._dispatch_to_worker
+        _create_actor_on = NodeAgent._create_actor_on
+        _drain_actor_fifo = NodeAgent._drain_actor_fifo
+        _run_on_worker = NodeAgent._run_on_worker
+
+        def __init__(self):
+            self._lock = threading.RLock()
+            self._idle_cv = threading.Condition()
+            self._idle, self._spawns_pending, self._num_workers = [], 0, 1
+            self._actor_workers, self._actor_meta = {}, {}
+            self._workers = {"w1": handle}
+            self._actor_fifo, self._actor_draining = {}, set()
+            self._shutdown = False
+
+        def _pop_idle_worker(self):
+            return handle
+
+        def _spawn_worker(self):  # the backfill's fork, after the mapping
+            published.set()
+            time.sleep(0.5)
+
+        def _push_req(self, spec, env=None):
+            return {"kind": spec.kind}
+
+        def _alloc_env(self, alloc):
+            return {}
+
+        def _finish_worker_reply(self, spec, handle, alloc, reply):
+            pass
+
+    agent = _A()
+
+    def lease(kind):
+        return LeaseRequest(task_id=kind, name="A", payload=b"", return_ids=[],
+                            resources={}, kind=kind, actor_id="a1")
+
+    creator = threading.Thread(target=agent._dispatch_to_worker,
+                               args=(lease("actor_creation"), None))
+    creator.start()
+    assert published.wait(5.0)
+    assert agent._actor_workers == {"a1": "w1"}  # methods can find the worker
+    agent._actor_fifo["a1"] = [lease("actor_method")]
+    agent._actor_draining.add("a1")
+    drainer = threading.Thread(target=agent._drain_actor_fifo, args=("a1",))
+    drainer.start()
+    creator.join(10.0)
+    drainer.join(10.0)
+    assert not creator.is_alive() and not drainer.is_alive()
+    assert pushed == ["actor_creation", "actor_method"]

@@ -113,6 +113,7 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "import ray_tpu_torch.serve, ray_tpu_torch.serve.fleet, ray_tpu_torch.llm.serving\n"
         "import ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.grpc_ingress\n"
         "import ray_tpu_torch.serve.proto_ingress, ray_tpu_torch.serve.model_store\n"
+        "import ray_tpu_torch.rl, ray_tpu_torch.rllib\n"
         "import torch\n"
         "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
         "from ray_tpu_torch.models import transformer as tfm\n"
@@ -166,4 +167,4 @@ def test_no_source_of_the_port_imports_jax_or_ray_tpu():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "ray_tpu"), f"{path}: imports {name}"
+                assert top not in ("jax", "jaxlib", "optax", "ray_tpu"), f"{path}: imports {name}"

@@ -95,3 +95,27 @@ def test_capacity_plan_matches_the_reference(cpu_rows):
         want = JS.capacity_plan(cpu_rows, JS.pressure_rollup(p))
         got = TS.capacity_plan(cpu_rows, TS.pressure_rollup(p), device="cpu")
         assert want == got
+
+
+def test_busy_node_stays_while_demand_overflows_to_new_nodes():
+    """Queue C 11: parked demand that fills the idle node and spills onto
+    hypothetical nodes must not let the controller consolidation-retire
+    the busy node in the same plan. The reference counts the spilled
+    demand as placed and retires it, so the next tick provisions its
+    replacement (the retire-then-reprovision that gave the cluster test a
+    third node under load); the port provisions and keeps it."""
+    plans = []
+    for mod, kw in ((JE, {}), (TE, {"device": "cpu"})):
+        snap = _snap(mod, nodes=2, cpu=2.0, lease_load={"n0": 2}, avail_cpu={0: 0.0},
+                     task_shapes={((0, 1.0),): 5})
+        matrix = mod.assemble_demand(snap)
+        hypo = np.zeros((2, 2), dtype=np.float32)
+        hypo[:, 0] = 2.0
+        solved = mod.solve_demand(snap.avail, matrix, hypo_rows=hypo, iters=24, **kw)
+        plans.append(mod.build_plan(snap, matrix, solved, idle_since={n: 0.0 for n in snap.node_ids},
+                                    now=1000.0, min_nodes=1, idle_retire_s=30.0, retire_max=2,
+                                    provision_max=3, **kw))
+    ref, port = plans
+    assert ref.provision == port.provision == 2
+    assert ref.retire == ["n0"]  # the reference's churn
+    assert port.retire == [] and port.migrate == []
