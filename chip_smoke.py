@@ -137,6 +137,33 @@ passes or exits non-zero:
    the card, the mean return past the first iteration's by more than 10,
    every loss finite, a PPO checkpoint restored equal on the card, IMPALA
    with both rollouts in flight; env steps/s and SGD steps/s;
+5g. data (``ray_tpu_torch/data/``; ``phase_data``): prints whether pyarrow
+   and pandas import; bench.py's ``shuffle_bench`` traffic unchanged, on a
+   fresh ``Cluster(use_device_scheduler=True)`` of two agents (4 CPUs, 2
+   workers, 512 MiB arenas) for each of its two passes, the row loop
+   (``RAY_TPU_DATA_VECTOR_SHUFFLE=0`` before the agents start) then the
+   vectorized path: ``random_shuffle(seed=7)`` of 4,000,000 f64 rows in 16
+   ndarray blocks, equal element for element to this process's replay of
+   the port's map and reduce functions, and a hash ``groupby("k").count()``
+   over ``range(100_000)`` in 16 blocks (64 groups of 1,562 or 1,563); on the
+   vectorized pass the locality run (1,000,000 rows in 32 blocks, seed 11,
+   ``RAY_TPU_SCHED_W_LOCALITY=2.0``: locality-scored leases, the head's
+   rounds on the card, each replayed equal on the CPU) and the ingest
+   stall of ``iter_batches(batch_size=125_000)`` at prefetch 0 and 2, each
+   batch copied to the card before a 4 ms step, the landed rows sorted on
+   the card equal to ``arange`` with their exact f64 sum; zero arena spills.
+   ``shuffle_mb_per_s``, ``shuffle_groupby_s``, the locality hit rate,
+   ``ingest_stall_s`` and each pass's grant RPC p50 printed. Then
+   ``TorchTrainer(datasets={"train": ds})`` over
+   ``from_numpy_blocks(table, 8).random_shuffle(seed=2)`` of a seeded
+   256 × 513 int32 table: 2 workers on half a GPU lease each train
+   ``ModelConfig()`` bf16 at T=512 with Adam, one step a batch of 8, every
+   batch moved to the card; the ranks' rows disjoint and covering the
+   table, each rank's losses bit-equal to this process's replay of its
+   ``split(2)`` shard, the flash launches those the steps imply. Where
+   pyarrow imports, ``LLMProcessor`` over ``from_items`` of 8 prompts in 2
+   blocks (``ModelConfig()`` bf16, batch 4, 8 greedy tokens): every stream
+   token-equal to ``LLMEngine.generate_ids`` in this process;
 6. runs the scheduler slice on the card against the port's CPU path, every
    output bit-identical: bench.py's kernel tier (1,024 nodes, 100,000
    requests) through ``hybrid_schedule_shapes``, with capacity recomputed on
@@ -158,8 +185,8 @@ passes or exits non-zero:
    read-only view, ``wait`` and ``cancel``, ``kill_node`` and lineage
    rebuild, a streaming generator, and work held past every slot that
    parks and unparks on ``shape_slots``); each recorded round is replayed
-   on the CPU and must give the same node rows; the burst then runs again
-   on the port's CPU path. Any ERROR record of the ``ray_tpu_torch``
+   on the CPU and must give the same node rows; the burst then runs again,
+   one pass, on the port's CPU path. Any ERROR record of the ``ray_tpu_torch``
    loggers ("scheduler round failed") fails the phase;
 8. runs the multi-process cluster (``Cluster()``: the head in this process
    with its ``DeviceSchedulerState`` on the card and
@@ -178,7 +205,7 @@ passes or exits non-zero:
    with the new head's state on the card, leased tasks then ``kill_node``
    and a lineage rebuild); each recorded round (the parked-demand ring's
    from the card burst on) is replayed on the CPU; the burst runs again,
-   one pass, with the head on the port's CPU path. Each burst prints its ring
+   2,500 tasks, with the head on the port's CPU path. Each burst prints its ring
    rounds' program ms and slots walked, and the client's lease grants,
    grant RPC ms, misses by the state of their shape's leases and lease
    ages. Any ERROR record fails the phase;
@@ -189,8 +216,9 @@ passes or exits non-zero:
    the runs, recorded on the card, replays equal on the CPU;
 10. runs ``run_elasticity_sim`` at bench.py's part (b) sizes (10,000
    nodes, 200 parked shapes), 1 tick of its 8: the tick's ms, ``solve_path``,
-   every tick's ``solve_pack_counts`` on the card, each replayed on the
-   CPU (per_node and placed equal, the residual within 1e-5);
+   every tick's ``solve_pack_counts`` on the card, each against the CPU's
+   result for its inputs, each distinct input solved once on the CPU
+   (per_node and placed equal, the residual within 1e-5);
 11. drives the autoscaler: in the local runtime on the card (256 nodes, a
    2,000-task backlog in 20 shapes no node holds), ``Autoscaler.tick()``
    packs the demand on the card and launches nodes until every task has
@@ -2793,6 +2821,416 @@ def phase_rllib(device: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# 5g. data/: the streaming shuffle, and real ingest into TorchTrainer and
+#     LLMProcessor
+# ---------------------------------------------------------------------------
+SHUFFLE = dict(rows=4_000_000, parts=16, loc_parts=32, groupby_rows=100_000)  # bench.py's
+DATA_TRAIN = dict(rows=256, seq=512, vocab=32_000, blocks=8, batch=8, seed=70, lr=3e-4)
+
+
+def data_libs() -> dict:
+    """The data layer's lazy imports: which of pyarrow and pandas import
+    here (a dict result of ``map_batches`` needs pyarrow)."""
+    import importlib
+
+    libs = {}
+    for name in ("pyarrow", "pandas"):
+        try:
+            libs[name] = importlib.import_module(name).__version__
+        except Exception as exc:  # noqa: BLE001 - absent or broken: both mean "no"
+            libs[name] = None
+            print(f"data: import {name} failed: {exc!r}")
+    print(f"data: pyarrow {libs['pyarrow'] or 'absent'}, pandas {libs['pandas'] or 'absent'}")
+    return libs
+
+
+def _agent_spills(c, nodes) -> int:
+    """Objects the agents' arenas spilled to disk (their DebugState)."""
+    from ray_tpu_torch.cluster.rpc import RpcClient
+
+    total = 0
+    for nid in nodes:
+        rpc = RpcClient(c.agent_address(nid))
+        try:
+            st = rpc.call("DebugState", {}, timeout=15.0)
+        finally:
+            rpc.close()
+        total += st.get("object_plane", {}).get("spilled_objects", 0) or 0
+    return total
+
+
+def shuffle_replay(blocks, seed: int) -> np.ndarray:
+    """``random_shuffle(seed)`` of ``blocks`` computed in this process with
+    the port's own map and reduce functions, in the dataset's block order."""
+    from ray_tpu_torch.data.shuffle import _partition_block, _reduce_shuffled
+
+    n = len(blocks)
+    maps = [_partition_block._fn(b, n, "random", None, None, seed + i) for i, b in enumerate(blocks)]
+    return np.concatenate([np.asarray(_reduce_shuffled._fn(seed, *[m[p] for m in maps]),
+                                      dtype=np.float64) for p in range(n)])
+
+
+def ingest_stall(ds, batch_size: int, prefetch: int, dev, keep: bool):
+    """bench.py's ingest stall: seconds blocked in ``next()`` over
+    ``iter_batches`` at ``prefetch`` depth, each batch copied to ``dev``
+    before a 4 ms step; the copies are kept when ``keep``."""
+    it = ds.iter_batches(batch_size=batch_size, prefetch_batches=prefetch)
+    stall, got = 0.0, []
+    while True:
+        t = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        stall += time.perf_counter() - t
+        x = torch.tensor(batch["data"], device=dev)  # the batch on the card
+        if keep:
+            got.append(x)
+        time.sleep(0.004)  # bench.py's "train step"
+    return stall, got
+
+
+def _locality_rounds():
+    """Wraps the head's round program to note, per call, the device of its
+    inputs and whether a locality matrix rode with it, on top of
+    ``_record_rounds``'s host copies; returns (records, impl, seen, restore)."""
+    from ray_tpu_torch.scheduler import hybrid as H
+
+    records, impl, restore_rec = _record_rounds()
+    inner, seen = H.hybrid_schedule_shapes_multi_impl, []
+
+    def probe(*args, **kwargs):
+        seen.append((args[0].device.type, kwargs.get("locality") is not None))
+        return inner(*args, **kwargs)
+
+    H.hybrid_schedule_shapes_multi_impl = probe
+
+    def restore():
+        H.hybrid_schedule_shapes_multi_impl = inner
+        restore_rec()
+
+    return records, impl, seen, restore
+
+
+def shuffle_pass(vector: bool, device: str, rows: int, parts: int, loc_parts: int,
+                 groupby_rows: int) -> dict:
+    """One of bench.py's ``shuffle_bench`` passes on a fresh
+    ``Cluster(use_device_scheduler=True)`` of two agents (4 CPUs, 2
+    workers, a 512 MiB arena each): the partitioning path is chosen in the
+    workers, so ``RAY_TPU_DATA_VECTOR_SHUFFLE`` is set before the agents
+    start. ``random_shuffle(seed=7)`` of ``rows`` f64 rows in ``parts``
+    ndarray blocks, its rows held against this process's replay of the map
+    and reduce functions; a hash ``groupby("k").count()``; and on the
+    vectorized pass the locality run (``loc_parts`` blocks, seed 11,
+    ``RAY_TPU_SCHED_W_LOCALITY=2.0``, every head round recorded and
+    replayed on the CPU) and the ingest stall at depths 0 and 2, every
+    batch landed on the card, the landed rows sorted there."""
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    label = "vectorized" if vector else "row loop"
+    dev = torch.device(device)
+    os.environ["RAY_TPU_DATA_VECTOR_SHUFFLE"] = "1" if vector else "0"
+    os.environ["RAY_TPU_SCHED_W_LOCALITY"] = "0"
+    res = {}
+    t_pass = time.perf_counter()
+    c = _cluster(device, use_device_scheduler=True)
+    leases, untrace = _trace_leases()
+    try:
+        nodes = add_nodes(c, *[({"CPU": 4.0}, dict(num_workers=2, store_capacity=1 << 29))] * 2)
+        client = c.client()
+        set_runtime(client)
+        try:
+            arr = np.arange(rows, dtype=np.float64)
+            t0 = time.perf_counter()
+            shuffled = rd.from_numpy_blocks(arr, override_num_blocks=parts).random_shuffle(
+                seed=7).materialize()
+            refs = shuffled._input_blocks
+            ready, _ = rtt.wait(refs, num_returns=len(refs), timeout=600)
+            check(len(ready) == len(refs), f"data {label}: {len(ready)}/{len(refs)} reduces sealed")
+            sealed = sum(client.object_sizes(refs).values())
+            res["mb_s"] = rows * 8 / (time.perf_counter() - t0) / 2**20
+            check(sealed >= rows * 8, f"data {label}: reduces sealed {sealed} bytes < {rows * 8}")
+            res["shuffle_grants"] = len(leases["grant_ms"])
+
+            g0 = time.perf_counter()
+            # a lambda, as bench.py's: shipped by value to the workers
+            counts = (rd.range(groupby_rows, override_num_blocks=16)
+                      .map(lambda x: {"k": x % 64, "v": x}).groupby("k").count().take_all())
+            res["groupby_s"] = time.perf_counter() - g0
+            got = {r["k"]: r["count"] for r in counts}
+            want = {k: len(range(k, groupby_rows, 64)) for k in range(64)}
+            check(got == want, f"data {label}: group counts {sorted(got.items())[:4]}... are not "
+                               f"{sorted(want.items())[:4]}...")
+
+            replay = shuffle_replay(np.array_split(arr, parts), 7)
+            if not vector:
+                host = np.concatenate([np.asarray(b, dtype=np.float64)
+                                       for b in shuffled.iter_blocks()])
+                check(np.array_equal(host, replay),
+                      f"data {label}: the shuffled rows differ from the in-process replay")
+            else:
+                stall0, landed = ingest_stall(shuffled, max(1, rows // parts // 2), 0, dev, True)
+                stall2, _ = ingest_stall(shuffled, max(1, rows // parts // 2), 2, dev, False)
+                res["stall"] = (stall0, stall2)
+                cat = torch.cat(landed)
+                check(cat.device.type == device, f"data: the landed rows lie on {cat.device}")
+                check(torch.equal(torch.sort(cat).values,
+                                  torch.arange(rows, dtype=torch.float64, device=dev)),
+                      "data: the rows the card received, sorted there, are not arange(rows)")
+                total = cat.sum().item()
+                check(total == rows * (rows - 1) / 2,
+                      f"data: the landed rows sum to {total}, not {rows * (rows - 1) // 2}")
+                check(torch.equal(cat, torch.from_numpy(replay).to(dev)),
+                      "data: the rows the card received differ from the in-process replay")
+                del landed, cat
+
+                records, impl, seen, restore = _locality_rounds()
+                try:
+                    os.environ["RAY_TPU_SCHED_W_LOCALITY"] = "2.0"
+                    loc0 = client.query_state("sched").get("locality", {})
+                    larr = np.arange(rows // 4, dtype=np.float64)
+                    lds = rd.from_numpy_blocks(larr, override_num_blocks=loc_parts).random_shuffle(
+                        seed=11).materialize()
+                    lrefs = lds._input_blocks
+                    ready, _ = rtt.wait(lrefs, num_returns=len(lrefs), timeout=600)
+                    loc1 = client.query_state("sched").get("locality", {})
+                finally:
+                    restore()
+                check(len(ready) == len(lrefs), "data: the locality run's reduces did not seal")
+                scored = (loc1.get("scored") or 0) - (loc0.get("scored") or 0)
+                hits = (loc1.get("hit_frac_sum") or 0.0) - (loc0.get("hit_frac_sum") or 0.0)
+                res["locality_scored_leases"] = int(scored)
+                res["locality_hit_rate"] = hits / scored if scored else None
+                check(scored > 0, "data: no lease was locality-scored")
+                with_loc = [d for d, has in seen if has]
+                check(with_loc and all(d == device for d in with_loc),
+                      f"data: the locality rounds ran on {sorted(set(with_loc))}, not {device}")
+                for i, (args, kw, node, avail_out) in enumerate(records):
+                    out = impl(*args, **kw)
+                    check(torch.equal(out.node, node) and torch.equal(out.avail_out, avail_out),
+                          f"data: head round {i} of {len(records)} replays differently on the CPU")
+                res["rounds"] = (len(records), len(with_loc))
+                lrows = np.concatenate([np.asarray(b) for b in lds.iter_blocks()])
+                check(np.array_equal(np.sort(lrows), larr)
+                      and np.array_equal(lrows, shuffle_replay(np.array_split(larr, loc_parts), 11)),
+                      "data: the locality run's rows differ from the in-process replay")
+                res["spills"] = _agent_spills(c, nodes)
+        finally:
+            set_runtime(None)
+            client.shutdown()
+    finally:
+        untrace()
+        c.shutdown()
+        os.environ.pop("RAY_TPU_DATA_VECTOR_SHUFFLE", None)
+        os.environ.pop("RAY_TPU_SCHED_W_LOCALITY", None)
+    res["grant_p50_ms"] = float(np.percentile(leases["grant_ms"], 50)) if leases["grant_ms"] else None
+    res["grants"] = len(leases["grant_ms"])
+    res["seconds"] = time.perf_counter() - t_pass
+    print(f"data shuffle {label} on {'; '.join(card_line().splitlines())}: "
+          f"{rows:,} f64 rows in {parts} blocks, shuffle_mb_per_s {res['mb_s']:.1f}; "
+          f"shuffle_groupby_s {res['groupby_s']:.3f}; lease grants {res['grants']} "
+          f"({res['shuffle_grants']} in the shuffle), grant RPC ms p50 "
+          f"{res['grant_p50_ms'] if res['grant_p50_ms'] is None else round(res['grant_p50_ms'], 1)}"
+          f"; pass {res['seconds']:.1f} s")
+    return res
+
+
+def data_train_steps(batches, config, dev):
+    """The ingest loop's body: ``ModelConfig(**config["model"])`` from
+    ``init_params`` under ``config["seed"]`` on ``dev``, Adam, one step a
+    batch, each batch's int32 rows copied to the card. Returns the losses,
+    each row's digest and whether every tensor of the loop lay on ``dev``."""
+    import hashlib
+
+    cfg = tfm.ModelConfig(**config["model"])
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(config["seed"]), dev)
+    leaves = [x.requires_grad_() for x in tfm.param_leaves(params)]
+    opt = torch.optim.Adam(leaves, lr=config["lr"])
+    step = tfm.make_train_step(cfg, opt)
+    losses, digests, on_dev = [], [], True
+    for batch in batches:
+        rows = batch["data"]
+        digests += [hashlib.sha1(r.tobytes()).hexdigest() for r in rows]
+        tokens = torch.tensor(rows, device=dev).long()
+        losses.append(step(params, tokens).item())
+        # Adam's step counts are host scalars by torch's design
+        held = leaves + [tokens] + [v for st in opt.state.values() for k, v in st.items()
+                                    if k != "step"]
+        on_dev = on_dev and on(held, dev.type)
+    return losses, digests, on_dev
+
+
+def data_train_loop(config):
+    """A TorchTrainer worker: its shard of the table through
+    ``get_dataset_shard("train")`` (the default prefetch depth), one train
+    step a batch; writes its losses and row digests beside the run."""
+    from ray_tpu_torch import train
+
+    rank = train.get_context().get_world_rank()
+    batches = train.get_dataset_shard("train").iter_batches(batch_size=config["batch"])
+    losses, digests, on_dev = data_train_steps(batches, config, torch.device(config["device"]))
+    with open(os.path.join(config["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(dict(losses=losses, digests=digests, on_device=on_dev), f)
+    train.report({"steps": len(losses)})
+
+
+def data_trainer(device: str, model: dict, seq: int) -> dict:
+    """``TorchTrainer(datasets={"train": ds})``: 2 workers on half a GPU
+    lease each, on the local runtime with its scheduler on the card, over
+    ``from_numpy_blocks(table, 8).random_shuffle(seed=2)`` of a seeded
+    256 x (T + 1) int32 table. The ranks' rows are disjoint and cover the
+    table; each rank's losses equal, bit for bit, this process's replay of
+    its ``ds.split(2)`` shard with the same seed; the flash launches are
+    those the steps imply."""
+    import hashlib
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    dt = DATA_TRAIN
+    table = np.random.default_rng(dt["seed"]).integers(
+        0, min(dt["vocab"], model.get("vocab_size", dt["vocab"])), (dt["rows"], seq + 1),
+        dtype=np.int32)
+    digests = {hashlib.sha1(r.tobytes()).hexdigest() for r in table}
+    check(len(digests) == dt["rows"], "data trainer: the table's rows are not distinct")
+    config = dict(model=model, device=device, batch=dt["batch"], seed=dt["seed"], lr=dt["lr"])
+    with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_data_") as out:
+        config["out"] = out
+        rtt.init(num_nodes=1, resources_per_node={"CPU": 4.0, "GPU": 1.0})
+        try:
+            ds = rd.from_numpy_blocks(table, override_num_blocks=dt["blocks"]).random_shuffle(seed=2)
+            zero_launches()
+            result = TorchTrainer(
+                data_train_loop, train_loop_config=config,
+                scaling_config=ScalingConfig(num_workers=2,
+                                             resources_per_worker={"CPU": 1.0, "GPU": 0.5}),
+                run_config=RunConfig(name="phase-data", storage_path=out),
+                datasets={"train": ds},
+            ).fit()
+            launches = read_launches()
+            check(result.error is None, f"data trainer: {result.error!r}")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            t_replay = time.perf_counter()
+            replays = [data_train_steps(shard.iter_batches(batch_size=dt["batch"]), config, dev)
+                       for shard in ds.split(2)]
+            replay_s = time.perf_counter() - t_replay
+        finally:
+            rtt.shutdown()
+    steps = [len(r["losses"]) for r in ranks]
+    seen = [set(r["digests"]) for r in ranks]
+    check(sum(len(r["digests"]) for r in ranks) == dt["rows"] and not (seen[0] & seen[1])
+          and (seen[0] | seen[1]) == digests,
+          f"data trainer: the ranks' rows ({[len(r['digests']) for r in ranks]}) are not a "
+          f"partition of the table's {dt['rows']}")
+    check(all(r["on_device"] for r in ranks), f"data trainer: a tensor of the loop was off {device}")
+    for rank, (r, (losses, dig, on_dev)) in enumerate(zip(ranks, replays)):
+        check(dig == r["digests"], f"data trainer: rank {rank}'s replayed rows differ")
+        check(losses == r["losses"],
+              f"data trainer: rank {rank}'s losses {r['losses'][:3]}... differ from the replay's "
+              f"{losses[:3]}...")
+    cfg = tfm.ModelConfig(**model)
+    per_step = dict(fwd=cfg.n_layers * (2 if cfg.remat else 1), dq=cfg.n_layers, dkv=cfg.n_layers)
+    want = {k: v * sum(steps) for k, v in per_step.items()}
+    print(f"data trainer: TorchTrainer over the shuffled table, 2 ranks x half a GPU lease, "
+          f"steps {steps} (rows {[len(r['digests']) for r in ranks]}), losses rank 0 "
+          f"{ranks[0]['losses'][0]:.4f} -> {ranks[0]['losses'][-1]:.4f}, rank 1 "
+          f"{ranks[1]['losses'][0]:.4f} -> {ranks[1]['losses'][-1]:.4f}, bit-equal to the "
+          f"driver's replay ({replay_s:.1f} s); flash launches {launches}, the steps imply "
+          f"{want} ({per_step} a step x {sum(steps)} steps); {time.perf_counter() - t0:.1f} s")
+    if device == "cuda":
+        check(launches == want, f"data trainer: launches {launches}, the steps imply {want}")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def data_processor(device: str, model: dict) -> None:
+    """``LLMProcessor`` over ``from_items`` of 8 prompts in 2 blocks
+    (``ModelConfig()`` bf16, batch 4, 8 greedy tokens) on the local
+    runtime: every row's text names the same token ids as
+    ``LLMEngine.generate_ids`` of its prompt in this process. For the
+    phase the engines' byte tokenizer decodes each id as ``"<id> "``
+    (``id_tokenizer``), so equal texts mean equal tokens."""
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.llm import LLMProcessor
+    from ray_tpu_torch.llm import engine as eng_mod
+
+    t0 = time.perf_counter()
+    cfg = tfm.ModelConfig(**model)
+    params = tfm.init_params(cfg, torch.Generator(device=device).manual_seed(72), device)
+    prompts = [f"row {i} of the data slice's batch" for i in range(8)]
+    gen_cfg = GenerationConfig(max_new_tokens=8)
+    saved = eng_mod.ByteTokenizer.decode
+    eng_mod.ByteTokenizer.decode = lambda self, ids: "".join(f"{int(i)} " for i in ids)
+    rtt.init(num_nodes=1, resources_per_node={"CPU": 4.0, "GPU": 1.0})
+    try:
+        ds = rd.from_items([{"prompt": p} for p in prompts], override_num_blocks=2)
+        rows = LLMProcessor(cfg, params, generation=gen_cfg, batch_size=4, max_len=64,
+                            device=device).process(ds).take_all()
+    finally:
+        rtt.shutdown()
+        eng_mod.ByteTokenizer.decode = saved
+    want = LLMEngine(cfg, params, max_len=64, device=device).generate_ids(
+        [eng_mod.ByteTokenizer().encode(p) for p in prompts], gen_cfg)
+    got = {r["prompt"]: text_ids([r["generated_text"]]) for r in rows}
+    check(sorted(got) == sorted(prompts), f"data processor: rows for {sorted(got)}")
+    same = sum(got[p] == list(w) for p, w in zip(prompts, want))
+    print(f"data processor: LLMProcessor over a Dataset (8 prompts, 2 blocks, batch 4, 8 greedy "
+          f"tokens), {same}/8 streams token-equal to LLMEngine.generate_ids; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(same == 8, "data processor: a stream differs from LLMEngine's")
+
+
+def phase_data(device: str = "cuda", model=None, seq: int = 512, shuffle=None) -> dict:
+    """``data/`` on the card: bench.py's ``shuffle_bench`` (the row loop,
+    then the vectorized path with the locality run and the ingest stall),
+    ``TorchTrainer`` over a shuffled dataset on the flash kernels, and,
+    where pyarrow imports, ``LLMProcessor`` over a dataset. Returns the
+    trainer's flash launches."""
+    _platform_env(device)
+    t0 = time.perf_counter()
+    libs = data_libs()
+    sh = dict(SHUFFLE, **(shuffle or {}))
+    errors = _RuntimeErrors()
+    try:
+        slow = shuffle_pass(False, device, **sh)
+        fast = shuffle_pass(True, device, **sh)
+        errors.check("data shuffle")
+    finally:
+        errors.close()
+    stall0, stall2 = fast["stall"]
+    print(f"data shuffle on {'; '.join(card_line().splitlines())}: shuffle_mb_per_s vectorized "
+          f"{fast['mb_s']:.1f}, row loop {slow['mb_s']:.1f}, speedup "
+          f"{fast['mb_s'] / max(slow['mb_s'], 1e-9):.2f}; shuffle_groupby_s vectorized "
+          f"{fast['groupby_s']:.3f}, row loop {slow['groupby_s']:.3f}; "
+          f"shuffle_locality_hit_rate {fast['locality_hit_rate']} over "
+          f"{fast['locality_scored_leases']} locality-scored leases; head rounds recorded "
+          f"{fast['rounds'][0]} ({fast['rounds'][1]} with locality on {device}), each replayed "
+          f"equal on the CPU; ingest_stall_s prefetch 0 {stall0:.3f}, prefetch 2 {stall2:.3f}, "
+          f"ratio {stall2 / max(stall0, 1e-9):.3f}; arena spills {fast['spills']}; grant RPC ms "
+          f"p50 row loop {slow['grant_p50_ms']}, vectorized {fast['grant_p50_ms']}")
+    check(fast["spills"] == 0, f"data: the arenas spilled {fast['spills']} objects")
+    model = {} if model is None else dict(model)  # ModelConfig(): bf16, d_model 512, 4 layers
+    launches = data_trainer(device, model, seq)
+    if libs["pyarrow"]:
+        data_processor(device, model)
+    else:
+        print("data processor: skipped, pyarrow does not import here (a dict result of "
+              "map_batches becomes an Arrow block)")
+    print(f"data phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 6. the scheduler: card against the port's CPU path
 # ---------------------------------------------------------------------------
 SCHED_EPS = 1e-5  # the scheduler's comparison tolerance (scheduler/hybrid.py _EPS)
@@ -3558,7 +3996,8 @@ def phase_runtime():
               f"and avail_out equal")
         os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
         try:
-            cpu = runtime_burst("CPU path", "cpu")
+            # one pass of bench.py's two on the CPU twin: the smoke's time
+            cpu = runtime_burst("CPU path", "cpu", passes=1)
         finally:
             os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
         errors.check("burst on the CPU path")
@@ -4011,7 +4450,10 @@ def phase_cluster():
         os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
         cpu_ring, _, cpu_ring_restore = _record_ring_rounds()
         try:
-            cpu, cpu_rounds, cpu_hits, cpu_misses = cluster_burst("CPU path", "cpu", passes=1)
+            # a quarter of a pass on the CPU twin (the card's pass is bench.py's
+            # 10,000 tasks): the smoke's time
+            cpu, cpu_rounds, cpu_hits, cpu_misses = cluster_burst("CPU path", "cpu",
+                                                                  num_tasks=2_500, passes=1)
         finally:
             cpu_ring_restore()
             os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
@@ -4137,8 +4579,9 @@ def phase_elasticity(device: str = "cuda", num_nodes: int = 10_000, ticks: int =
     """bench.py's elasticity part (b): ``run_elasticity_sim`` at its
     defaults, a real head with ``num_nodes`` nodes, serve pressure,
     under-world gangs and ``task_shapes`` parked shapes; every tick is one
-    ``solve_pack_counts`` on the card. Each recorded solve is replayed on
-    the CPU: per_node and placed equal, the residual within 1e-5."""
+    ``solve_pack_counts`` on the card. Each recorded solve is held against
+    the CPU's solve of its inputs (each distinct input solved once there):
+    per_node and placed equal, the residual within 1e-5."""
     from ray_tpu_torch.scheduler import binpack as B
     from ray_tpu_torch.scheduler import elasticity as E
     from ray_tpu_torch.scheduler.sim import run_elasticity_sim
@@ -4182,16 +4625,20 @@ def phase_elasticity(device: str = "cuda", num_nodes: int = 10_000, ticks: int =
           f"{_pcts([x[4] for x in solves])}")
     t1 = time.perf_counter()
     worst = 0.0
+    cpu = {}  # a tick solves the same inputs more than once: each is replayed once
     for i, ((avail, shapes, counts), kw, _, outs, _) in enumerate(solves):
-        res = impl(avail, shapes, counts, **{**kw, "device": "cpu"})
+        key = (avail.tobytes(), shapes.tobytes(), counts.tobytes(), repr(sorted(kw.items())))
+        if key not in cpu:
+            cpu[key] = impl(avail, shapes, counts, **{**kw, "device": "cpu"})
+        res = cpu[key]
         check(torch.equal(res.per_node, outs[1]) and torch.equal(res.placed, outs[0]),
               f"elasticity: solve {i} of {len(solves)} places differently on the CPU")
         err = float((res.avail_out - outs[2]).abs().max())
         worst = max(worst, err)
         check(err <= SCHED_EPS, f"elasticity: solve {i} residual off the CPU's by {err:.3g}")
-    print(f"elasticity replay: {len(solves)} solves on the CPU, per_node and placed equal, "
-          f"residual max abs err {worst:.3g} (tolerance {SCHED_EPS}) "
-          f"({time.perf_counter() - t1:.1f} s)")
+    print(f"elasticity replay: {len(solves)} solves ({len(cpu)} distinct inputs) against the "
+          f"CPU, per_node and placed equal, residual max abs err {worst:.3g} (tolerance "
+          f"{SCHED_EPS}) ({time.perf_counter() - t1:.1f} s)")
     print(f"elasticity phase: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -5328,6 +5775,7 @@ def main() -> None:
     serve_launches = timed(phase_serving)
     rl_launches = timed(phase_rl)
     timed(phase_rllib)
+    data_launches = timed(phase_data)
     timed(phase_scheduler)
     timed(phase_runtime)
     timed(phase_cluster)
@@ -5349,19 +5797,19 @@ def main() -> None:
              replaces="ray_tpu/ops/flash_attention.py:185",
              launches=flash_launches, **flash_row, wide_shape=wide_rows["fwd"],
              mesh_launches=par["fwd"], trainer_launches=trainer_launches["fwd"],
-             rl_launches=rl_launches["fwd"]),
+             rl_launches=rl_launches["fwd"], data_launches=data_launches["fwd"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:230",
              launches=train_launches["dq"], **bwd_rows["dq"], wide_shape=wide_rows["dq"],
              mesh_launches=par["dq"], trainer_launches=trainer_launches["dq"],
-             rl_launches=rl_launches["dq"]),
+             rl_launches=rl_launches["dq"], data_launches=data_launches["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:247",
              launches=train_launches["dkv"], **bwd_rows["dkv"], wide_shape=wide_rows["dkv"],
              mesh_launches=par["dkv"], trainer_launches=trainer_launches["dkv"],
-             rl_launches=rl_launches["dkv"]),
+             rl_launches=rl_launches["dkv"], data_launches=data_launches["dkv"]),
     ]
     print(f"phase seconds: {json.dumps(PHASE_S)}; total {sum(PHASE_S.values()):.1f} s")
     print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s; "

@@ -329,6 +329,12 @@ class ActorState:
             if should_await(result):
                 result = await result
             self._seal_result(call, result)
+        except GeneratorExit:
+            # closed unfinished: its loop stopped with the instance, and
+            # the garbage collector reaps it later in whatever thread it
+            # runs, even one inside the object store's lock. mark_died has
+            # already redelivered or failed the call: seal nothing
+            raise
         except BaseException as exc:  # noqa: BLE001
             self._seal_failure(call, exc)
         finally:

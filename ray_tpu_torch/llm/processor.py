@@ -1,11 +1,12 @@
 """Batch inference processor: rows with a "prompt" column through
 ``LLMEngine``.
 
-Port of ``ray_tpu/llm/processor.py``. The reference maps batches through
-its ``Dataset.map_batches``; the port has no ``data/`` package yet, so
-``process`` takes any object with that method (duck-typed: a callable over
-a dict of column arrays, and a ``batch_size``), and the engine is built on
-first use in the process that runs the batches.
+Port of ``ray_tpu/llm/processor.py``. ``process`` maps a
+``ray_tpu_torch.data.Dataset`` through ``map_batches``: each batch is a
+dict of numpy columns, and the result gains a "generated_text" column (a
+dict result becomes an Arrow block, so this path needs pyarrow, as the
+reference's does). The engine is built on first use in the process that
+runs the batches, on ``device`` there.
 """
 from __future__ import annotations
 

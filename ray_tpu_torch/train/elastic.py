@@ -105,6 +105,10 @@ ELASTIC_DISK_RESTORES = _Counter(
 HEAD_CHECK_S = 1.0
 
 
+# the reason a rank gives when a call to its gang's hub failed
+HUB_UNREACHABLE = "hub unreachable"
+
+
 class GangEpochRevoked(RuntimeError):
     """This rank's gang epoch was fenced: a member died, the owner
     requested a resize, or the rendezvous hub vanished. The rank seals
@@ -445,7 +449,7 @@ class GangContext:
             raise
         except Exception as exc:  # noqa: BLE001 - hub/node death
             raise GangEpochRevoked(
-                f"gang {self.gang_id} op {op_id}: hub unreachable ({exc!r})"
+                f"gang {self.gang_id} op {op_id}: {HUB_UNREACHABLE} ({exc!r})"
             ) from exc
         if out is None:
             raise GangEpochRevoked(
@@ -924,6 +928,8 @@ class _Generation:
     actors: List[Any]
     refs: List[Any]
     seal_hexes: List[str] = field(default_factory=list)
+    # ranks whose node the head declared dead during the generation
+    dead_ranks: List[int] = field(default_factory=list)
 
 
 class ElasticTrainer:
@@ -971,6 +977,8 @@ class ElasticTrainer:
             self.elastic.max_workers
         )
         self._hub = None
+        # the node the hub was placed on (None on the local runtime)
+        self._hub_node: Optional[str] = None
         self._epoch = 0
         self._generation = 0
         self._progress_step = 0
@@ -1126,8 +1134,18 @@ class ElasticTrainer:
             self._epoch += 1
         return self._epoch
 
-    def _ensure_hub(self, epoch: int, world: int):
+    def _ensure_hub(self, epoch: int, world: int, near: Optional[str]):
+        """The gang's hub, configured for ``epoch``: the old one while it
+        answers and its node was not seen dead, else a new one, placed on
+        ``near`` (a node of the new generation) where the runtime can: the
+        head places an actor on a dead node until its health verdict lands,
+        and a hub there would take the generation's calls down with it."""
+        from ray_tpu_torch.core.scheduling_strategies import NodeAffinitySchedulingStrategy
+
         Hub = ray_tpu_torch.remote(_GangHubActor)
+        if self._hub is not None and self._hub_node in self._avoid_now():
+            self._kill_quiet(self._hub)
+            self._hub = None
         if self._hub is not None:
             try:
                 ray_tpu_torch.get(
@@ -1136,8 +1154,12 @@ class ElasticTrainer:
                 return self._hub
             except Exception:  # noqa: BLE001 - hub died with its node
                 self._hub = None
+        locate = getattr(self._runtime(), "actor_location", None)
+        if near and locate is not None:
+            Hub = Hub.options(scheduling_strategy=NodeAffinitySchedulingStrategy(near, soft=True))
         self._hub = Hub.remote(self.gang_id, epoch, world)
         ray_tpu_torch.get(self._hub.configure.remote(epoch, world), timeout=60)
+        self._hub_node = locate(self._hub._actor_id)[0] if locate else None
         return self._hub
 
     def _fence(self, reason: str) -> None:
@@ -1415,6 +1437,15 @@ class ElasticTrainer:
                         pass
                 fenced_at = time.monotonic()  # one more drain window
         sync_stop.set()
+        if self._is_remote():
+            # the head's verdict on this generation's nodes as of now: a
+            # rank on a node it declared dead may still have answered
+            try:
+                reply = self._runtime().gang_sync(self.gang_id, gen.epoch, timeout=0.0)
+                if int(reply.get("epoch", 0)) > gen.epoch:
+                    gen.dead_ranks = [int(r) for r in reply.get("dead_ranks", ())]
+            except Exception:  # noqa: BLE001 - head blip: the errors still name the dead
+                pass
         return results, errors
 
     # -- restore selection ---------------------------------------------
@@ -1654,7 +1685,7 @@ class ElasticTrainer:
             )
             try:
                 epoch = self._register(nodes)
-                hub = self._ensure_hub(epoch, world)
+                hub = self._ensure_hub(epoch, world, nodes[0] if nodes else None)
                 start_step = resume["step"] if resume else 0
                 payload_base = {
                     "world": world,
@@ -1764,15 +1795,29 @@ class ElasticTrainer:
             # ---- reshape path ----
             t_reshape = time.monotonic()
             t_reshape_wall = time.time()
+            # a rank the head named dead may still have answered: its
+            # node's agent is gone, but a worker can outlive it for a
+            # while, and the seals it made there are out of reach
             dead_nodes = sorted(
                 {
                     nodes[r]
-                    for r in errors
+                    for r in set(errors) | set(gen.dead_ranks)
                     if r < len(nodes) and nodes[r]
                 }
             )
             for n in dead_nodes:
                 self._recent_dead[n] = time.monotonic()
+            if self._hub_node and any(
+                HUB_UNREACHABLE in str(r.get("reason", ""))
+                for r in results.values()
+            ):
+                # the hub died: count its node as dead until the head's
+                # verdict lands. Killing a node is not atomic, so a rank
+                # beside the hub can still answer "reshape" (its hub
+                # unreachable) before its own process goes; with no
+                # error to name the node, the restore trusted seals held
+                # only there and the next placement counted it live
+                self._recent_dead[self._hub_node] = time.monotonic()
             resume, used_hexes = self._pick_restore(results)
             if resume is None:
                 resume, used_hexes = self._disk_restore()

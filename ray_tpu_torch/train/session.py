@@ -1,9 +1,9 @@
 """Per-worker training session context (ray.train.get_context analog).
 
 Port of ``ray_tpu/train/session.py``: the same context, ``report`` with
-its durable ``_latest_checkpoint`` pointer, and the duck-typed
-``DataIterator`` over a dataset shard (the port has no ``data/`` yet, so
-a shard is whatever the caller passed in ``datasets=``)."""
+its durable ``_latest_checkpoint`` pointer, and ``DataIterator`` over a
+rank's shard of a ``ray_tpu_torch.data.Dataset`` passed in ``datasets=``.
+Batches stay numpy; the loop moves them to its device."""
 from __future__ import annotations
 
 import threading

@@ -367,6 +367,53 @@ def test_rank_survives_its_hub_dying_with_its_node(monkeypatch):
     the fence from the head's gang table instead of waiting on the dead
     hub's call, seals its boundary and returns: the gang shrinks with
     every step reported once and no disk restore."""
+    _hub_node_death(monkeypatch, "node")
+
+
+def test_rank_beside_a_dead_hub_answering_before_its_node_dies(monkeypatch):
+    """Killing a node is not atomic: under load the rank beside the hub saw
+    the hub gone and answered "reshape" before its own process died. No
+    rank then failed, so the driver trusted that node's seals and placed
+    the next generation's new hub on it before the head's verdict: a
+    second, "flat" reshape after a 90 s hang. The driver now counts the
+    lost hub's node as dead and places a new hub beside its ranks."""
+    _hub_node_death(monkeypatch, "hub_first")
+
+
+def test_ranks_outliving_their_dead_agent_count_as_dead(monkeypatch):
+    """Under load the workers of a killed node can outlive their agent until
+    the head's verdict: the gang trains on, then both ranks answer
+    "reshape" (fenced at the head) and none fails. The driver restored
+    from seals held only in the dead node's arena, and the next
+    generation broke again (a "flat" reshape). The driver now counts the
+    ranks the head named dead as dead, answered or not. Here the dead
+    node's zygote is stopped, so its workers live on as they did."""
+    _hub_node_death(monkeypatch, "orphans")
+
+
+def _zygote_of(cluster, node_id: str) -> int:
+    """The pid of ``node_id``'s zygote: the child of its agent that runs
+    ``ray_tpu_torch.cluster.zygote`` (the workers it forks keep its
+    command line)."""
+    agent = cluster._agents[node_id].pid
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            cmd = open(f"/proc/{pid}/cmdline", "rb").read()
+            stat = open(f"/proc/{pid}/stat").read()
+        except OSError:
+            continue
+        if b"ray_tpu_torch.cluster.zygote" in cmd and int(stat.rsplit(")", 1)[1].split()[1]) == agent:
+            return int(pid)
+    raise AssertionError(f"no zygote under the agent of {node_id}")
+
+
+def _hub_node_death(monkeypatch, order: str):
+    """Kills the node of the gang's hub (a rank beside it) at step 6. With
+    ``order`` "hub_first" the hub's process goes half a second before the
+    rest of its node, so the rank beside it answers "reshape" before it
+    dies; with "orphans" the node's zygote is stopped first, so its
+    workers outlive the agent until the test ends."""
+    import signal
     from ray_tpu_torch import train
     from ray_tpu_torch.cluster import Cluster
     from ray_tpu_torch.core.runtime import set_runtime
@@ -413,8 +460,17 @@ def test_rank_survives_its_hub_dying_with_its_node(monkeypatch):
         actors = rt.head.call("QueryState", {"kind": "actors"})
         hub_node = next(a["node_id"] for a in actors if a["class_name"] == "_GangHubActor")
         assert hub_node
+        zygote = None
+        if order == "hub_first":
+            ray_tpu_torch.kill(trainer._hub)
+            time.sleep(0.5)
+        elif order == "orphans":
+            zygote = _zygote_of(cluster, hub_node)
+            os.kill(zygote, signal.SIGSTOP)
         cluster.kill_node(hub_node)
         th.join(timeout=120)
+        if zygote is not None:
+            os.kill(zygote, signal.SIGKILL)  # its workers then follow
         assert not th.is_alive(), "elastic fit() wedged"
         res = box["res"]
         assert res.error is None, res.error

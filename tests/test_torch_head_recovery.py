@@ -242,6 +242,45 @@ def test_actor_max_task_retries_redelivery_on_chaos_kill():
         rtpu.shutdown()
 
 
+def test_an_abandoned_async_call_seals_nothing_when_reaped():
+    """The port's own case (ROADMAP Queue C 15): an async call parked when
+    its actor's loop stopped is reaped later by the garbage collector, in
+    whatever thread runs it. Its coroutine sealed a GeneratorExit failure
+    there: over a result the redelivered call had sealed (the reference's
+    chaos-kill case fails so under load), or, in a thread inside the
+    object store's lock, into a deadlock that hung the process at
+    shutdown. Closing it now seals nothing."""
+    import asyncio
+
+    import ray_tpu_torch as rtpu
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    class Parker:
+        async def park(self):
+            await asyncio.sleep(60)
+
+    rtpu.init(num_nodes=1, resources_per_node={"CPU": 2})
+    try:
+        a = rtpu.remote(Parker).remote()
+        ref = a.park.remote()
+        state = a._actor_state
+        deadline = time.monotonic() + 10
+        while not state._inflight or state._loop is None:
+            assert time.monotonic() < deadline, "the call never started"
+            time.sleep(0.01)
+        loop, thread = state._loop, state._loop_thread
+        time.sleep(0.2)  # let the call reach its await
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10)
+        tasks = asyncio.all_tasks(loop)
+        assert tasks
+        for task in tasks:
+            task.get_coro().close()  # what the garbage collector does
+        assert not get_runtime().store.contains(ref)
+    finally:
+        rtpu.shutdown()
+
+
 def test_head_restart_with_unconsumed_stream_items(tmp_path):
     """Head restart while a streaming generator has unconsumed items:
     stream state rides the snapshot (items/done/consumed watermarks plus

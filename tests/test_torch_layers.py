@@ -93,6 +93,7 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
     monkeypatch.setenv("RAY_TPU_SCHED_PLATFORM", "cpu")
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "import ray_tpu_torch, ray_tpu_torch._cuda, ray_tpu_torch._jaxrng\n"
         "import ray_tpu_torch.ops.layers, ray_tpu_torch.ops.flash_attention\n"
         "import ray_tpu_torch.ops.paged_attention, ray_tpu_torch.models.transformer\n"
@@ -114,6 +115,7 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "import ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.grpc_ingress\n"
         "import ray_tpu_torch.serve.proto_ingress, ray_tpu_torch.serve.model_store\n"
         "import ray_tpu_torch.rl, ray_tpu_torch.rllib\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.io, ray_tpu_torch.data.execution\n"
         "import torch\n"
         "from ray_tpu_torch.ops.flash_attention import flash_attention\n"
         "from ray_tpu_torch.models import transformer as tfm\n"
@@ -134,6 +136,11 @@ def test_import_pulls_in_neither_jax_nor_ray_tpu(monkeypatch):
         "assert rt.device_state.device.type == 'cpu'\n"
         "f = ray_tpu_torch.remote(lambda x: x + 1)\n"
         "assert ray_tpu_torch.get(f.remote(1), timeout=60) == 2\n"
+        "from ray_tpu_torch import data as rd\n"
+        "ds = rd.from_numpy_blocks(np.arange(64.0), override_num_blocks=4)\n"
+        "assert sorted(ds.random_shuffle(seed=1).take_all()) == list(range(64))\n"
+        "assert rd.range(30, override_num_blocks=3).map(lambda x: {'k': x % 3})"
+        ".groupby('k').count().count() == 3\n"
         "ray_tpu_torch.shutdown()\n"
         "from ray_tpu_torch.cluster.serialization import dumps_parts, join_parts, loads\n"
         "t = torch.arange(6.0)\n"

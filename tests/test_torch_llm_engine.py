@@ -91,24 +91,16 @@ def test_text_generate_matches_jax():
     assert te.generate(texts, GenerationConfig(**kw)) == je.generate(texts, JGen(**kw))
 
 
-class Rows:
-    """The least a dataset must offer LLMProcessor: map_batches over dicts
-    of column arrays."""
+def test_processor_matches_jax(monkeypatch):
+    """Both processors over their own package's ``Dataset`` of the same
+    rows (each on its own local runtime): the same texts, row order kept."""
+    import ray_tpu
+    import ray_tpu.data as jdata
 
-    def __init__(self, rows):
-        self.rows = rows
+    import ray_tpu_torch
+    import ray_tpu_torch.data as tdata
 
-    def map_batches(self, fn, batch_size):
-        out = []
-        for i in range(0, len(self.rows), batch_size):
-            chunk = self.rows[i: i + batch_size]
-            batch = {k: np.array([r[k] for r in chunk], dtype=object) for k in chunk[0]}
-            res = fn(batch)
-            out += [{k: res[k][j] for k in res} for j in range(len(chunk))]
-        return out
-
-
-def test_processor_matches_jax():
+    monkeypatch.setenv("RAY_TPU_SCHED_PLATFORM", "cpu")
     kw = dict(SMALL, vocab_size=260)
     cj = J.ModelConfig(dtype=jnp.float32, **kw)
     ct = T.ModelConfig(dtype=torch.float32, **kw)
@@ -116,12 +108,23 @@ def test_processor_matches_jax():
     pt = T.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
     rows = [{"prompt": p, "id": i} for i, p in enumerate(["a", "bc", "def", "ghij", "k"])]
     gen = dict(max_new_tokens=5, temperature=0.6, seed=2)
-    want = JProcessor(cj, pj, generation=JGen(**gen), batch_size=2, max_len=32).process(
-        Rows(rows))
-    got = LLMProcessor(ct, pt, generation=GenerationConfig(**gen), batch_size=2, max_len=32,
-                       device="cpu").process(Rows(rows))
-    assert [r["generated_text"] for r in got] == [r["generated_text"] for r in want]
+    ray_tpu.init(num_nodes=1, resources_per_node={"CPU": 4})
+    try:
+        want = JProcessor(cj, pj, generation=JGen(**gen), batch_size=2, max_len=32).process(
+            jdata.from_items(rows, override_num_blocks=2)).take_all()
+    finally:
+        ray_tpu.shutdown()
+    ray_tpu_torch.init(num_nodes=1, resources_per_node={"CPU": 4})
+    try:
+        got = LLMProcessor(ct, pt, generation=GenerationConfig(**gen), batch_size=2, max_len=32,
+                           device="cpu").process(tdata.from_items(rows, override_num_blocks=2))
+        got = got.take_all()
+    finally:
+        ray_tpu_torch.shutdown()
+    # blocks stream back in the order their tasks finish: match rows by id
+    got, want = (sorted(r, key=lambda row: row["id"]) for r in (got, want))
     assert [r["id"] for r in got] == list(range(5))
+    assert [r["generated_text"] for r in got] == [r["generated_text"] for r in want]
 
 
 def test_engine_raises_without_cuda():
