@@ -60,7 +60,8 @@ passes or exits non-zero:
    card, two agents sharing it, a 2-rank STRICT_SPREAD gang, 4 virtual
    shards, a seal every 2 steps) trains ``ModelConfig()`` bf16 for 40 steps
    with Adam's moments sealed ZeRO-style; the node of rank 1 is killed at
-   step 13, a node joins after the shrink and the gang grows back: steps
+   step 13 (the chaos package's ``wait_gang_reshaped`` clean within 60 s),
+   a node joins after the shrink and the gang grows back: steps
    0-39 contiguous, reshapes exactly a shrink 2->1 and a grow 1->2, no
    disk restore, the final state, moments and every loss bit-equal to this
    process's own run of the 40 steps, CUDA leaves sealed, flash launches
@@ -114,7 +115,15 @@ passes or exits non-zero:
    with a router killed mid-stream three times, every stream token-exact
    with an unbroken run, failover p95. The paged kernel is also held
    against its plain version at the
-   serving decode shape (max_batch 4, 8-token pages);
+   serving decode shape (max_batch 4, 8-token pages). Last on that cluster,
+   ``phase_chaos_serve``: the reference's two slow serve chaos cases under
+   ``ray_tpu_torch.chaos`` (ModelConfig() f32, 2 continuous replicas of
+   max_batch 2 behind 2 routers, ``ServeStreamWorkload`` of 2 threads x 10
+   tokens held against the CPU engine): two replica kills (seed 11), then a
+   router kill (seed 7); both runs ``ok``, every stream token-exact, the
+   replica set backfilled to 2 with each backfilled replica launching the
+   paged kernel, the killed router's streams resumed ``ok``, no arena
+   zombie (its launches are the kernel line's ``chaos_launches``);
 5e. online RL (``ray_tpu_torch/rl/``; ``phase_rl``): bench.py's
    ``rl_loop_bench`` traffic (2 rollout workers x 2 prompts a step, 6 prompt
    and 6 new tokens, batch 4, 8 steps, seed 3, a publish every 2 steps) on
@@ -170,7 +179,8 @@ passes or exits non-zero:
    the host; the head's round at 10,000 nodes and a 200,000-request backlog
    through ``DeviceSchedulerState`` and ``SchedulerPipeline`` (rounds of
    4,096 at depth 3), with the default weights and the multi-objective ones,
-   placement divergence 0; then the fidelity, chunked, ring, slot, bundle
+   placement divergence 0 over the first 16 rounds, which the CPU path
+   replays; then the fidelity, chunked (two chunks of 2,048), ring, slot, bundle
    and autoscaler programs; prints ms per call, placements/s, round-latency
    p50/p99, upload/kernel/readback ms, device ops and busy share;
 7. runs the local runtime (``ray_tpu_torch.init`` → ``remote`` → a
@@ -186,7 +196,7 @@ passes or exits non-zero:
    rebuild, a streaming generator, and work held past every slot that
    parks and unparks on ``shape_slots``); each recorded round is replayed
    on the CPU and must give the same node rows; the burst then runs again,
-   one pass, on the port's CPU path. Any ERROR record of the ``ray_tpu_torch``
+   one pass of 2,500 tasks, on the port's CPU path. Any ERROR record of the ``ray_tpu_torch``
    loggers ("scheduler round failed") fails the phase;
 8. runs the multi-process cluster (``Cluster()``: the head in this process
    with its ``DeviceSchedulerState`` on the card and
@@ -231,6 +241,22 @@ passes or exits non-zero:
    tasks, kills the leader: the standby promotes onto the leader's port
    with its scheduler state on the card, a task and an actor created after
    the promotion return, and ``FAILOVER_MS`` is printed;
+12a. runs bench.py's ``chaos_bench`` on the port (``phase_chaos``, in a
+   child process of this script, ``--chaos``, with a temp dir of its own,
+   from after the kernels' timing phases to before ``phase_elastic_train``:
+   it needs no kernel and spends most of its time waiting out its faults'
+   detection, so it runs beside the model phases; its output is printed
+   when it ends, and its exit code is checked): a
+   ``Cluster`` with its head on the card and a WAL, two 2-CPU agents,
+   ``ChaosWorkload`` and ``ChaosOrchestrator`` over the first 12 faults of
+   bench.py's seed 20260803 (partitions, stragglers, object drops, node,
+   owner and zygote kills), then one ``head_restart``: both runs ``ok``,
+   the injected schedule equal to the plan, no acked object lost, no arena
+   zombie, no ERROR record; the old head's scheduler state holds no card
+   memory after the restart and no other state took any; every head and
+   ring round of the phase replays equal on the CPU; seed, fault counts,
+   acked, reconstructed, owners killed, recovery p50/p95, breaker opens and
+   wall printed;
 13. serves the head's dashboard (first, while nvcc builds the kernels of
    phase 1, since it needs none of them) (``dashboard_port=0``, the standard
    library's ``ThreadingHTTPServer``) over two agents, tasks, two actors
@@ -269,6 +295,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -1339,6 +1366,7 @@ def phase_elastic_train(device: str = "cuda", total_steps: int = 40, model=None)
     bit, with no disk restore."""
     import threading
 
+    from ray_tpu_torch.chaos import InvariantChecker
     from ray_tpu_torch.core.runtime import set_runtime
     from ray_tpu_torch.train import ElasticConfig, ElasticTrainer, programs, pytree
 
@@ -1415,8 +1443,16 @@ def phase_elastic_train(device: str = "cuda", total_steps: int = 40, model=None)
             gangs = client.head.call("QueryState", {"kind": "gangs"})
             victim = gangs.get(trainer.gang_id, {"members": {}})["members"].get("1")
             check(bool(victim), f"elastic: no node for rank 1 ({gangs.get(trainer.gang_id)})")
+            pre_epochs = {trainer.gang_id: gangs[trainer.gang_id]["epoch"]}
             t_kill = time.monotonic()
             c.kill_node(victim)
+            # the chaos package's invariant: the gang fences the dead
+            # generation and registers a membership whose nodes all live
+            reshaped = InvariantChecker(c, None).wait_gang_reshaped(pre_epochs, timeout=60)
+            check(reshaped == [], f"elastic: the gang did not reshape: {reshaped}")
+            print(f"elastic: wait_gang_reshaped clean {time.monotonic() - t_kill:.2f} s after "
+                  f"the kill (epoch {pre_epochs[trainer.gang_id]} -> "
+                  f"{c.head._gangs.get(trainer.gang_id, {}).get('epoch')})")
             deadline = time.monotonic() + 120
             while time.monotonic() < deadline and th.is_alive():
                 if any(r["direction"] == "shrink" for r in trainer.reshape_log):
@@ -2551,13 +2587,140 @@ def phase_router_fleet(device: str = "cuda", model=None, qps: float = 40.0,
     return sum(launches)
 
 
-def phase_serving(device: str = "cuda", model=None) -> int:
-    """The three serving phases on one ``serve_cluster``; returns the paged
-    launches counted inside their replicas."""
+CHAOS_SERVE_ENGINE = dict(engine="continuous", max_batch=2, page_size=8, n_pages=64)
+
+
+def _wait_until(pred, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, f"{what}: not within {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def phase_chaos_serve(c, client, device: str = "cuda", model=None, max_new: int = 10) -> int:
+    """The reference's two slow serve chaos cases on ``serve_cluster``'s
+    cluster at ``ModelConfig()``'s width in f32 (TF32 off): a
+    ``build_llm_deployment`` of 2 continuous replicas on the card (max_batch
+    2, 8-token pages, 64 pages) behind a 2-router fleet (push streams),
+    ``ServeStreamWorkload`` (2 threads, 10 greedy tokens a stream, each
+    held against the engine on the CPU with the same weights), then
+    ``make_plan(11, 2, SERVE_MIX, allow=("replica_kill",))`` and
+    ``make_plan(7, 1, ROUTER_MIX, allow=("router_kill",))`` under
+    ``ChaosOrchestrator``: both ``ok``, every stream token-exact, the
+    replica set backfilled to 2 with each backfilled replica launching the
+    paged kernel, every stream in flight on the killed router resumed
+    ``ok`` on its sibling, one router left, no arena zombie. Returns the
+    paged launches counted inside the replicas alive at the end, from zero
+    at the deployment's start (a killed replica's count dies with it)."""
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.chaos import (
+        ROUTER_MIX,
+        SERVE_MIX,
+        ChaosOrchestrator,
+        ChaosWorkload,
+        ServeStreamWorkload,
+        make_plan,
+    )
+
+    t0 = time.perf_counter()
+    name, prompt = "chaos-llm", "chaos stream"
+    os.environ["RAY_TPU_SERVE_ROUTERS"] = "2"
+    os.environ["RAY_TPU_SERVE_SHM_STREAMS"] = "0"  # a router kill severs push streams
+    cfg32, p32 = serve_model(torch.float32, model)
+    eng = ContinuousBatchingEngine(cfg32, p32, device="cpu", tokenizer=id_tokenizer(),
+                                   **{k: v for k, v in CHAOS_SERVE_ENGINE.items()
+                                      if k != "engine"})
+    gen = GenerationConfig(max_new_tokens=max_new, temperature=0.0, seed=0)
+    expected = [eng.tokenizer.decode([int(t)])
+                for t in eng.stream_ids(eng.tokenizer.encode(prompt), gen)]
+    check(len(expected) == max_new, f"chaos serve: the CPU engine gave {len(expected)} tokens")
+    workload = None
+    runs = []
+    try:
+        serve.run(serve_app(cfg32, p32, name, device, num_replicas=2, **CHAOS_SERVE_ENGINE))
+        fleet = serve.get_router(name)
+        check(fleet.resumable and len(fleet.routers) == 2,
+              f"chaos serve: {len(fleet.routers)} routers, resumable {fleet.resumable}")
+        first = {a._actor_id for a in replica_actors(name)}
+        replica_launches(rtt, name, reset=True)
+        workload = ServeStreamWorkload(fleet, {"prompt": prompt, "max_new_tokens": max_new},
+                                       expected, concurrency=2)
+        workload.start()
+        _wait_until(lambda: workload.completed >= 2 or workload.verify_failures, 180.0,
+                    "chaos serve: warm streams")
+        check(not workload.verify_failures, f"chaos serve: {workload.verify_failures[:1]}")
+        chaos_wl = ChaosWorkload(client, payload_bytes=150_000, num_actors=1)
+        for plan, want in ((make_plan(seed=11, num_faults=2, mix=SERVE_MIX,
+                                      allow=("replica_kill",), min_delay_s=0.5, max_delay_s=1.0),
+                            {"replica_kill": 2}),
+                           (make_plan(seed=7, num_faults=1, mix=ROUTER_MIX,
+                                      allow=("router_kill",), min_delay_s=0.5, max_delay_s=1.0),
+                            {"router_kill": 1})):
+            check(plan.counts() == want, f"chaos serve: plan {plan.counts()}")
+            orch = ChaosOrchestrator(c, chaos_wl, plan, node_resources={"CPU": 4.0},
+                                     convergence_budget_s=120.0, serve_adapter=workload)
+            t1 = time.perf_counter()
+            res = orch.run()
+            runs.append((plan, res, time.perf_counter() - t1, workload.completed))
+            for f in res.faults:
+                print(f"chaos serve #{f.spec.index} {f.spec.kind}: {f.recovery_s:.3f} s, "
+                      f"{f.detail}" + (f"; FAILED {f.failures}" if not f.ok else ""))
+            check(res.ok, f"chaos serve seed {plan.seed}: {res.summary()['failures']}")
+            check(not workload.verify_failures, f"chaos serve: {workload.verify_failures[:1]}")
+            if "replica_kill" in want:
+                check(workload.completed >= 3, f"chaos serve: {workload.completed} completed")
+                check(workload.live_replicas() == 2,
+                      f"chaos serve: {workload.live_replicas()} live replicas, not 2")
+                fresh = [a for a in replica_actors(name) if a._actor_id not in first]
+                check(len(fresh) >= 1, "chaos serve: no replica was backfilled")
+
+                def fresh_launched():
+                    return all(rtt.get(a.kernel_launches.remote(False), timeout=60)
+                               ["paged_attention_decode"] > 0 for a in fresh)
+
+                _wait_until(fresh_launched, 60.0,
+                            "chaos serve: a backfilled replica launching the paged kernel")
+        workload.stop()
+        launches = replica_launches(rtt, name)
+        outcomes = workload.watched_outcomes()
+        routers_live = workload.routers_live()
+    finally:
+        if workload is not None:
+            workload.stop()
+        os.environ.pop("RAY_TPU_SERVE_ROUTERS", None)
+        os.environ.pop("RAY_TPU_SERVE_SHM_STREAMS", None)
+        serve.shutdown()
+    check(workload.routers_killed == 1, f"chaos serve: {workload.routers_killed} routers killed")
+    check(bool(outcomes) and all(v == "ok" for v in outcomes.values()),
+          f"chaos serve: streams in flight on the killed router: {outcomes}")
+    check(routers_live == 1, f"chaos serve: {routers_live} routers live after the kill")
+    check(all(res.arena_zombies_after == 0 for _, res, _, _ in runs),
+          f"chaos serve: arena zombies {[res.arena_zombies_after for _, res, _, _ in runs]}")
+    check(len(launches) == 2 and all(n > 0 for n in launches),
+          f"chaos serve: paged launches per replica {launches}")
+    for plan, res, wall, done in runs:
+        lat = res.recovery_percentiles()
+        print(f"chaos serve seed {plan.seed} {res.summary()['fault_counts']}, ModelConfig() f32 "
+              f"(TF32 off), 2 replicas behind 2 routers [{card_line()}]: ok {res.ok}, recovery "
+              f"p50 {lat['p50']:.3f} s p95 {lat['p95']:.3f} s, {done} streams completed "
+              f"token-exact so far, arena zombies {res.arena_zombies_after}, wall {wall:.1f} s")
+    print(f"chaos serve: {workload.completed} streams token-exact, {workload.stream_errors} "
+          f"stream errors tolerated, 0 verify failures; {len(outcomes)} streams in flight on the "
+          f"killed router, all resumed ok; paged launches in the replicas alive at the end "
+          f"{launches} (both backfilled or kept); {time.perf_counter() - t0:.1f} s")
+    return sum(launches)
+
+
+def phase_serving(device: str = "cuda", model=None) -> tuple:
+    """The three serving phases and ``phase_chaos_serve`` on one
+    ``serve_cluster``; returns the paged launches counted inside the
+    serving phases' replicas and inside the chaos phase's."""
     cluster = serve_cluster(device)
     try:
-        return (phase_serve_deployment(device, model) + phase_serve_disagg(device, model)
-                + phase_router_fleet(device, model))
+        launches = (phase_serve_deployment(device, model) + phase_serve_disagg(device, model)
+                    + phase_router_fleet(device, model))
+        return launches, timed(phase_chaos_serve, *cluster, device, model)
     finally:
         close_cluster(*cluster)
 
@@ -3472,6 +3635,9 @@ def head_run(platform: str, batches, weights, with_ages: bool, label: str):
     return nodes, row, st, view
 
 
+CPU_ROUNDS = 16  # of the 49 rounds of 4,096 the card runs
+
+
 def sched_head_round():
     """10,000 nodes and a 200,000-request backlog through the head's round,
     card and CPU, with the default weights and with the multi-objective
@@ -3484,9 +3650,13 @@ def sched_head_round():
                                        True)):
         batches = head_batches(16, 200_000, 4096)
         card, card_row, st, view = head_run("cuda", batches, weights, with_ages, label)
-        cpu, cpu_row, _, _ = head_run("cpu", batches, weights, with_ages, label)
-        divergence = int((card != cpu).sum())
-        print(f"sched head round {label}: placement divergence card vs CPU {divergence}")
+        # the CPU twin replays the stream's first CPU_ROUNDS rounds (the
+        # state carries from round to round, so a prefix is a whole
+        # comparison): the smoke's time
+        cpu, cpu_row, _, _ = head_run("cpu", batches[:CPU_ROUNDS], weights, with_ages, label)
+        divergence = int((card[:cpu.shape[0]] != cpu).sum())
+        print(f"sched head round {label}: placement divergence card vs CPU {divergence} over "
+              f"the first {len(batches[:CPU_ROUNDS])} of {len(batches)} rounds")
         check(divergence == 0, f"sched head round {label}: divergence {divergence}")
         sd, sid = batches[1][1:]
         ages = np.ones(sd.shape[0], np.float32) if with_ages else None
@@ -3533,9 +3703,11 @@ def sched_other_programs(st, view):
     both("hybrid_schedule_batch N=256 B=512", lambda d: tuple(H.hybrid_schedule_batch(
         totals, avail, alive, dem, pref, spill, 3, device=d)))
     totals, avail, alive = bench_cluster(1024, rng)
-    # 2 chunks of 4096 (8 before): the CPU side of 8 took ~60 s of the smoke
-    chunks = bench_demands(2 * 4096, rng).reshape(2, 4096, 16)
-    res = both("hybrid_schedule_rounds_chunked N=1024 2x4096", lambda d: tuple(
+    # 2 chunks of 2048 (2 of 4096, 8 of 4096 before): the CPU side of 2 x 4096 took
+    # 15.5 s of the smoke; two chunks keep the availability and seed carried
+    # from chunk to chunk under the comparison
+    chunks = bench_demands(2 * 2048, rng).reshape(2, 2048, 16)
+    res = both("hybrid_schedule_rounds_chunked N=1024 2x2048", lambda d: tuple(
         H.hybrid_schedule_rounds_chunked(totals, avail, alive, chunks, 5, device=d)))
     nodes = res[0].cpu().numpy()
     flat = chunks.reshape(-1, 16)
@@ -3996,8 +4168,9 @@ def phase_runtime():
               f"and avail_out equal")
         os.environ["RAY_TPU_SCHED_PLATFORM"] = "cpu"
         try:
-            # one pass of bench.py's two on the CPU twin: the smoke's time
-            cpu = runtime_burst("CPU path", "cpu", passes=1)
+            # one pass of a quarter of the card's (bench.py's two of 10,000)
+            # on the CPU twin: the smoke's time
+            cpu = runtime_burst("CPU path", "cpu", num_tasks=2_500, passes=1)
         finally:
             os.environ.pop("RAY_TPU_SCHED_PLATFORM", None)
         errors.check("burst on the CPU path")
@@ -4061,11 +4234,45 @@ def _trace_leases():
     its shape's leases at that moment, and each lease's age when it is
     dropped (idle TTL, stall or failure). Returns (stats, restore)."""
     from ray_tpu_torch.cluster import client as C
+    from ray_tpu_torch.cluster.head import HeadServer as H
 
     mgr, chan = C._TaskLeaseManager, C._TaskLeaseChannel
     saved = (mgr.submit, mgr._grant, mgr._drop_channel, chan.__init__)
+    head_saved = (H._grant_task_lease_inner, H._send_grants, H._apply_task_lease_reports)
     stats = {"grant_ms": [], "requests": 0, "granted": 0, "misses": {}, "ages": [],
-             "drops": {}, "born": {}, "ttl": set()}
+             "drops": {}, "born": {}, "ttl": set(),
+             # the head's side of each grant: when its long-poll began, when
+             # the round's grant sent the lease to an agent, when the agent's
+             # activation report landed, when the long-poll answered
+             "head": {"sent": {}, "active": {}, "rows": [], "unanswered": 0}}
+    head = stats["head"]
+
+    def grant_inner(self, req):
+        t0 = time.monotonic()
+        reply = head_saved[0](self, req)
+        if reply.get("granted"):
+            head["rows"].append((t0, reply["lease_id"], time.monotonic()))
+        else:
+            head["unanswered"] += 1
+        return reply
+
+    def send_grants(self, grants):
+        now = time.monotonic()
+        for specs in grants.values():
+            for sp in specs:
+                if sp.kind == "worker_lease":
+                    head["sent"].setdefault(sp.task_id, now)
+        return head_saved[1](self, grants)
+
+    def task_lease_reports(self, reports):
+        now = time.monotonic()
+        for tl in reports:
+            if tl.get("ok"):
+                head["active"].setdefault(tl["lease_id"], now)
+        return head_saved[2](self, reports)
+
+    H._grant_task_lease_inner, H._send_grants = grant_inner, send_grants
+    H._apply_task_lease_reports = task_lease_reports
 
     def submit(self, item, shape_key):
         ok = saved[0](self, item, shape_key)
@@ -4115,8 +4322,24 @@ def _trace_leases():
 
     def restore():
         mgr.submit, mgr._grant, mgr._drop_channel, chan.__init__ = saved
+        H._grant_task_lease_inner, H._send_grants, H._apply_task_lease_reports = head_saved
 
     return stats, restore
+
+
+def _head_grant_trace(head: dict) -> str:
+    """The head's side of the traced grants: ms from the long-poll's start
+    to the round's send to an agent, from the send to the agent's
+    activation report, and from the report to the answer (p50/p99)."""
+    rows = [(t0, head["sent"].get(lid), head["active"].get(lid), t1)
+            for t0, lid, t1 in head["rows"]]
+    done = [r for r in rows if r[1] is not None and r[2] is not None]
+    return (f"head side: {len(rows)} answered granted, {head['unanswered']} answered not "
+            f"granted; worker leases sent to agents {len(head['sent'])}, activated "
+            f"{len(head['active'])}; ms p50/p99 long-poll start to send "
+            f"{_pcts([(s - t0) * 1e3 for t0, s, _, _ in done])}, send to activation "
+            f"{_pcts([(a - s) * 1e3 for _, s, a, _ in done])}, activation to answer "
+            f"{_pcts([(t1 - a) * 1e3 for _, _, a, t1 in done])}")
 
 
 def _pcts(xs, scale=1.0):
@@ -4182,7 +4405,8 @@ def cluster_burst(label: str, device: str, num_tasks: int = 10_000, passes: int 
                   f"{dict(sorted(leases['misses'].items()))}; {len(leases['ages'])} leases "
                   f"dropped at age s p50/p99 {_pcts(leases['ages'])} "
                   f"{dict(sorted(leases['drops'].items()))}, "
-                  f"{len(leases['born'])} live at the end; lease TTL s {sorted(leases['ttl'])}")
+                  f"{len(leases['born'])} live at the end; lease TTL s {sorted(leases['ttl'])}; "
+                  f"{_head_grant_trace(leases['head'])}")
             return rates, rounds, hits, misses
         finally:
             set_runtime(None)
@@ -4409,6 +4633,7 @@ def phase_cluster():
     try:
         # one pass of bench.py's two, as on the CPU path below: the smoke's time
         card, card_rounds, card_hits, card_misses = cluster_burst("card", "cuda", passes=1)
+        print(f"cluster phase: card burst done at {time.perf_counter() - t0:.1f} s")
         card_ring = list(ring_records)
         errors.check("cluster burst on the card")
         records, impl, restore = _record_rounds()
@@ -4436,6 +4661,7 @@ def phase_cluster():
             while restores:
                 restores.pop()()
         errors.check("cluster functional workload")
+        print(f"cluster phase: functional workload done at {time.perf_counter() - t0:.1f} s")
         check(len(records) > 0, "cluster: no head round was recorded")
         for i, (args, kw, node, avail_out) in enumerate(records):
             res = impl(*args, **kw)
@@ -4892,6 +5118,232 @@ def phase_standby(device: str = "cuda", num_tasks: int = 300):
         for k in env:
             os.environ.pop(k, None)
     print(f"standby phase: {time.perf_counter() - t0:.1f} s")
+
+
+# --- the chaos harness: bench.py's chaos soak with the head on the card ---
+
+CHAOS_SEED = 20260803  # bench.py chaos_bench's default seed
+CHAOS_FAULTS = 12  # the first 12 of its 20 faults: all six of the plan's kinds
+
+
+def _resident_states(device: str) -> dict:
+    """id -> every scheduler state in this process that holds ``device``
+    memory now (no collection forced: a state left for the collector to
+    find counts)."""
+    import gc
+    import warnings
+
+    from ray_tpu_torch.scheduler.device import DeviceSchedulerState
+
+    with warnings.catch_warnings():  # isinstance reaches deprecated module attributes
+        warnings.simplefilter("ignore")
+        return {id(o): o for o in gc.get_objects()
+                if isinstance(o, DeviceSchedulerState) and o.device.type == device
+                and o.resident_bytes() > 0}
+
+
+def _watch_restart(c, device: str, records: list, ring_records: list) -> dict:
+    """Wraps ``c.restart_head`` to note, at the restart, the old head's
+    state, the states holding ``device`` memory, the card's allocated bytes
+    and how many rounds were recorded so far."""
+    seen = {}
+    restart = c.restart_head
+
+    def _restart():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        old = c.head.device_state
+        seen.update(old=old, old_bytes=old.resident_bytes(), before=_resident_states(device),
+                    mem=torch.cuda.memory_allocated() if device == "cuda" else 0,
+                    rounds=len(records), ring=len(ring_records))
+        restart()
+        seen["new"] = c.head.device_state
+
+    c.restart_head = _restart
+    return seen
+
+
+def _trace_checks():
+    """Times each invariant wait the orchestrator runs after a fault, by
+    wrapping the checker's and the workload's methods (nothing changes in
+    the package). Returns ({(seed, index, kind): {wait: seconds}}, restore)."""
+    from ray_tpu_torch.chaos import invariants as inv
+    from ray_tpu_torch.chaos import orchestrator as orc
+    from ray_tpu_torch.chaos import workload as wl
+
+    spans, cur, saved = {}, [None], []
+
+    def wrap(cls, name):
+        fn = getattr(cls, name)
+        saved.append((cls, name, fn))
+
+        def timed_call(self, *a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                if cur[0] is not None:
+                    d = spans.setdefault(cur[0], {})
+                    d[name] = d.get(name, 0.0) + time.perf_counter() - t
+
+        setattr(cls, name, timed_call)
+
+    for name in ("wait_membership", "wait_actors", "check_leases_drained", "wait_owner_reaped",
+                 "wait_streams_resume", "wait_replica_backfilled",
+                 "wait_streams_resume_cross_router"):
+        wrap(inv.InvariantChecker, name)
+    for name in ("verify_acked", "verify_ref"):
+        wrap(wl.ChaosWorkload, name)
+    inject = orc.ChaosOrchestrator._inject
+    saved.append((orc.ChaosOrchestrator, "_inject", inject))
+
+    def _inject(self, spec):
+        cur[0] = (self.plan.seed, spec.index, spec.kind)
+        return inject(self, spec)
+
+    orc.ChaosOrchestrator._inject = _inject
+
+    def restore():
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+    return spans, restore
+
+
+def _print_check_spans(label: str, spans: dict, res) -> None:
+    """One line a fault: its recovery and the invariant waits inside it."""
+    for f in res.faults:
+        waits = spans.get((res.seed, f.spec.index, f.spec.kind), {})
+        print(f"{label} #{f.spec.index} {f.spec.kind} waits (s): recovery {f.recovery_s:.3f}; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(waits.items(), key=lambda kv: -kv[1])))
+
+
+def phase_chaos(device: str = "cuda", num_faults: int = CHAOS_FAULTS):
+    """bench.py's ``chaos_bench`` on the port with the head's rounds on
+    ``device``: a ``Cluster`` with a WAL and two agents of 2 CPUs and 2
+    workers, ``ChaosWorkload`` (150,000-byte payloads, one restartable
+    actor), ``make_plan(20260803, num_faults)`` (the first faults of
+    bench.py's 20) under ``ChaosOrchestrator`` (partition hold 1 s,
+    convergence budget 60 s), then, on the same cluster,
+    ``make_plan(20260803, 1, allow=("head_restart",))``. Both runs ``ok``,
+    the injected schedule equal to the plan, zero acked-object loss, no
+    arena zombie, no ERROR record; every head and ring round of the phase
+    (after the restart too) replays equal on the CPU; after the restart the
+    old head's state holds no device memory and one state holds it."""
+    import tempfile
+
+    from ray_tpu_torch.chaos import ChaosOrchestrator, ChaosWorkload, make_plan
+    from ray_tpu_torch.cluster.rpc import _BREAKERS
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    _platform_env(device)
+    # bench.py's failure-detection knobs: the soak's time goes to faults
+    env = {"RAY_TPU_HEALTH_TIMEOUT_S": "4.0", "RAY_TPU_RPC_BREAKER_WINDOW_S": "2.0"}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    records, impl, restore = _record_rounds()
+    ring_records, ring_impl, ring_restore = _record_ring_rounds()
+    spans, untrace = _trace_checks()
+    opens0 = sum(b.open_count for b in _BREAKERS.values())
+    runs = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_chaos_") as d:
+            c = _cluster(device, persist_path=os.path.join(d, "head_state.pkl"))
+            try:
+                add_nodes(c, *[({"CPU": 2.0}, dict(num_workers=2))] * 2)
+                seen = _watch_restart(c, device, records, ring_records)
+                client = c.client()
+                set_runtime(client)
+                try:
+                    workload = ChaosWorkload(client, payload_bytes=150_000, num_actors=1)
+                    for plan in (make_plan(CHAOS_SEED, num_faults),
+                                 make_plan(CHAOS_SEED, 1, allow=("head_restart",))):
+                        orch = ChaosOrchestrator(c, workload, plan, node_resources={"CPU": 2.0},
+                                                 partition_hold_s=1.0, convergence_budget_s=60.0)
+                        t1 = time.perf_counter()
+                        runs.append((plan, orch.run(), time.perf_counter() - t1))
+                finally:
+                    set_runtime(None)
+                    client.shutdown()
+                head_rounds = c.head.metrics["sched_rounds"]
+                after = _resident_states(device)
+                new_bytes = seen["new"].resident_bytes() if seen.get("new") else 0
+                mem = torch.cuda.memory_allocated() if device == "cuda" else 0
+            finally:
+                c.shutdown()
+    finally:
+        restore()
+        ring_restore()
+        untrace()
+        errors.close()
+        for k in env:
+            os.environ.pop(k, None)
+    opens = sum(b.open_count for b in _BREAKERS.values()) - opens0
+    for plan, res, wall in runs:
+        summ = res.summary()
+        lat = res.recovery_percentiles()
+        print(f"chaos seed {plan.seed}, {len(res.faults)} faults {summ['fault_counts']} with the "
+              f"head on {device} [{card_line()}]: ok {res.ok}; objects acked "
+              f"{res.objects_acked}, reconstructed {res.objects_reconstructed}, owners killed "
+              f"{res.owners_killed}; recovery p50 {lat['p50']:.3f} s p95 {lat['p95']:.3f} s; "
+              f"arena zombies after {res.arena_zombies_after}; wall {wall:.1f} s")
+        for f in res.faults:
+            print(f"chaos #{f.spec.index} {f.spec.kind}: {f.recovery_s:.3f} s, {f.detail}"
+                  + (f"; FAILED {f.failures}" if not f.ok else ""))
+        _print_check_spans("chaos", spans, res)
+        check(res.ok, f"chaos seed {plan.seed}: invariants failed: {summ['failures']}")
+        check([(f.spec.index, f.spec.kind) for f in res.faults]
+              == [(f.index, f.kind) for f in plan.faults],
+              f"chaos seed {plan.seed}: the injected schedule differs from the plan")
+        check(res.arena_zombies_after == 0,
+              f"chaos: {res.arena_zombies_after} arena zombies after the soak")
+    soak = runs[0][1]
+    check(len(soak.faults) == num_faults and len(runs[1][1].faults) == 1,
+          f"chaos: {len(soak.faults)} + {len(runs[1][1].faults)} faults")
+    check(soak.objects_acked >= num_faults, f"chaos: {soak.objects_acked} objects acked")
+    check(runs[1][1].faults[0].detail.startswith("head restarted"),
+          f"chaos: the head was not restarted: {runs[1][1].faults[0].detail}")
+    errors.check("chaos")
+    # the restart: the old head's state released, one state resident
+    check(seen.get("new") is not None and seen["old"] is not seen["new"],
+          "chaos: no head restart was watched")
+    check(seen["old"].resident_bytes() == 0,
+          f"chaos: the old head's state still holds {seen['old'].resident_bytes()} bytes")
+    grown = set(after) - set(seen["before"])
+    check(id(seen["old"]) not in after and grown <= {id(seen["new"])},
+          f"chaos: {len(grown)} scheduler states took {device} memory after the restart")
+    print(f"chaos head restart: the old head's state held {seen['old_bytes']} bytes and holds 0; "
+          f"scheduler states holding {device} memory {len(seen['before'])} before, {len(after)} "
+          f"after (the new head's {new_bytes} bytes); allocated on the card "
+          f"{seen['mem']} -> {mem} bytes; {opens} breaker opens; head sched_rounds since the "
+          f"restart {head_rounds}")
+    # every recorded round replays equal on the CPU
+    check(len(records) + len(ring_records) > 0, "chaos: no head round was recorded")
+    check(len(records) - seen["rounds"] + len(ring_records) - seen["ring"] > 0,
+          "chaos: no head round was recorded after the restart")
+    for i, (args, kw, node, avail_out) in enumerate(records):
+        res = impl(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args], **kw)
+        check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
+              f"chaos: head round {i} of {len(records)} replays differently on the CPU")
+    for i, (args, kw, outs, _, _) in enumerate(ring_records):
+        res = ring_impl(*args, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(res, outs)),
+              f"chaos: ring round {i} of {len(ring_records)} replays differently on the CPU")
+    lat = soak.recovery_percentiles()
+    print(f"chaos replay: {len(records)} head rounds ({len(records) - seen['rounds']} after the "
+          f"restart) and {len(ring_records)} ring rounds ({len(ring_records) - seen['ring']} "
+          f"after) replayed on the CPU, every output equal")
+    print(f"chaos: chaos_seed {CHAOS_SEED}, chaos_ok {all(r.ok for _, r, _ in runs)}, "
+          f"chaos_faults_injected {num_faults}+1, chaos_fault_counts "
+          f"{soak.summary()['fault_counts']} + head_restart, chaos_objects_acked "
+          f"{runs[1][1].objects_acked}, chaos_objects_reconstructed "
+          f"{sum(r.objects_reconstructed for _, r, _ in runs)}, chaos_owners_killed "
+          f"{soak.owners_killed}, recovery_p50_s {lat['p50']:.3f}, recovery_p95_s "
+          f"{lat['p95']:.3f}, chaos_breaker_opens {opens}, arena_zombies_after_soak "
+          f"{runs[1][1].arena_zombies_after}, chaos_wall_s {sum(w for _, _, w in runs):.1f} "
+          f"[{card_line()}]")
+    print(f"chaos phase: {time.perf_counter() - t0:.1f} s")
 
 
 # --- the dashboard and the state API, compiled DAGs and pipelines, and ---
@@ -5741,38 +6193,91 @@ def phase_processes(grace_s: float = 20.0) -> None:
 PHASE_S: dict = {}
 
 
+_NESTED = [0.0]  # seconds of timed phases inside the one running
+
+
 def timed(fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its seconds kept under its name for the
-    phase-seconds line."""
+    phase-seconds line (a timed phase inside another counts only under its
+    own name)."""
     t = time.perf_counter()
+    _NESTED.append(0.0)
     try:
         return fn(*args, **kwargs)
     finally:
+        dt = time.perf_counter() - t
+        inner = _NESTED.pop()
+        _NESTED[-1] += dt
         name = fn.__name__.removeprefix("phase_")
-        PHASE_S[name] = round(PHASE_S.get(name, 0.0) + time.perf_counter() - t, 1)
+        PHASE_S[name] = round(PHASE_S.get(name, 0.0) + dt - inner, 1)
+
+
+# phases run in a child process beside the others: left out of the total
+BESIDE = ("chaos",)
+
+
+def start_chaos():
+    """``phase_chaos`` in a child process of this script (``--chaos``) with a
+    temp dir of its own (no other cluster's agent sweeps its files); its
+    output goes to a file there, printed by the join this returns."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    log = open(os.path.join(tmp, "chaos.log"), "wb")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--chaos"],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=here,
+                            env={**os.environ, "TMPDIR": tmp})
+
+    def join():
+        t1 = time.perf_counter()
+        rc = proc.wait(timeout=900)
+        PHASE_S["chaos_wait"] = round(time.perf_counter() - t1, 1)
+        log.close()
+        with open(log.name, "rb") as f:
+            text = f.read().decode(errors="replace")
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        # the phase's own seconds, as it printed them
+        m = re.search(r"^chaos phase: ([0-9.]+) s$", text, re.M)
+        PHASE_S["chaos"] = float(m.group(1)) if m else round(time.perf_counter() - t0, 1)
+        shutil.rmtree(tmp, ignore_errors=True)
+        check(rc == 0 and m is not None, f"chaos: the phase's process exited with {rc}")
+
+    return join
 
 
 def main() -> None:
+    if sys.argv[1:] == ["--chaos"]:
+        phase_chaos()
+        return
     become_subreaper()
     atexit.register(stop_descendants, 2.0)
     build = start_build()
-    timed(phase_dashboard)  # needs no kernel: it runs while nvcc builds them
+    # the dashboard needs no kernel: it runs while nvcc builds them
+    timed(phase_dashboard)
     timed(phase_card_and_build, build)
     flash_row = timed(phase_flash)
     bwd_rows = timed(phase_flash_backward)
     paged_row = timed(phase_paged)
+    # the chaos soak needs no kernel and mostly waits: it runs beside the
+    # model phases, after the kernels' timing phases
+    join_chaos = start_chaos()
     flash_launches = timed(phase_forward)
     paged_launches, tps = timed(phase_serve)
     train_launches, step_ms, train_tps, train_losses = timed(phase_train)
     timed(phase_train_f32)
     par = timed(phase_parallel, step_ms, train_tps)
-    lib_launches = [timed(phase_trainer, train_losses), timed(phase_elastic_train),
-                    timed(phase_tune)]
+    trainer_run = timed(phase_trainer, train_losses)
+    # before the elastic gang's node kill and its 2 s health timeout
+    join_chaos()
+    lib_launches = [trainer_run, timed(phase_elastic_train), timed(phase_tune)]
     trainer_launches = {k: sum(x[k] for x in lib_launches) for k in ("fwd", "dq", "dkv")}
     wide_rows = timed(phase_wide_heads)
     llm = timed(phase_llm_engine)
     disagg = timed(phase_llm_disagg)
-    serve_launches = timed(phase_serving)
+    serve_launches, chaos_launches = timed(phase_serving)
     rl_launches = timed(phase_rl)
     timed(phase_rllib)
     data_launches = timed(phase_data)
@@ -5791,7 +6296,8 @@ def main() -> None:
              source="ray_tpu_torch/csrc/paged_attention.cu",
              replaces="ray_tpu/ops/paged_attention.py:102",
              launches=paged_launches, **paged_row, wide_shape=wide_rows["paged"],
-             serve_launches=serve_launches, rl_launches=rl_launches["paged"]),
+             serve_launches=serve_launches, chaos_launches=chaos_launches,
+             rl_launches=rl_launches["paged"]),
         dict(name="flash_attention_fwd", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",
@@ -5811,7 +6317,9 @@ def main() -> None:
              mesh_launches=par["dkv"], trainer_launches=trainer_launches["dkv"],
              rl_launches=rl_launches["dkv"], data_launches=data_launches["dkv"]),
     ]
-    print(f"phase seconds: {json.dumps(PHASE_S)}; total {sum(PHASE_S.values()):.1f} s")
+    total = sum(v for k, v in PHASE_S.items() if k not in BESIDE)
+    print(f"phase seconds: {json.dumps(PHASE_S)}; total {total:.1f} s (without "
+          f"{', '.join(BESIDE)}, run beside the others; chaos_wait is the wait for it)")
     print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s; "
           f"mesh train {par['step_ms']:.2f} ms/step, {par['tps']:.1f} tokens/s; "
           f"LLMEngine decode {llm['tps']:.1f} tokens/s (MoE {llm['moe_tps']:.1f}); hand-off "

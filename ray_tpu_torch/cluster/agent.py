@@ -62,7 +62,7 @@ from .rpc import (
     RpcServer,
     RpcStaleEpochError,
 )
-from .zygote import ZygoteClient, fork_available
+from .zygote import PreforkedZygote, ZygoteClient, fork_available, prefork
 
 
 from ray_tpu_torch.config import cfg
@@ -236,9 +236,13 @@ class NodeAgent:
         num_workers: Optional[int] = None,
         store_capacity: int = 1 << 28,
         node_id: Optional[str] = None,
+        preforked: Optional[PreforkedZygote] = None,
     ):
         self.node_id = node_id or new_id()
         self.head_address = head_address
+        # the zygote forked before this process had threads (``main``):
+        # the first zygote, with no import to wait out
+        self._preforked = preforked
         self.head = RpcClient(head_address)
         self.vocab = ResourceVocab()
         self.ledger = make_ledger(self.vocab, resources)
@@ -533,6 +537,9 @@ class NodeAgent:
         # coalescing completion/seal reporter (see _reporter_loop)
         self._report_queue: List[Dict[str, Any]] = []
         self._report_cv = threading.Condition()
+        # tasks admitted and not yet reported finished or failed, named in
+        # RegisterNode so a restarted head lets them finish here
+        self._tasks_on_hand: set = set()
         threading.Thread(
             target=self._reporter_loop, name="agent-reporter", daemon=True
         ).start()
@@ -604,8 +611,11 @@ class NodeAgent:
         env = dict(os.environ)
         env["RAY_TPU_HEAD_ADDRESS"] = self.head_address
         env["RAY_TPU_NODE_ID"] = self.node_id
+        # the zygote forked at process start serves first; a replacement
+        # is spawned (this process has threads now)
+        pre, self._preforked = self._preforked, None
         try:
-            self._zygote = ZygoteClient(self.address, self.store_path, env)
+            self._zygote = ZygoteClient(self.address, self.store_path, env, preforked=pre)
         except OSError:
             logger.exception("zygote start failed; using cold spawn")
             self._zygote = None
@@ -1011,6 +1021,7 @@ class NodeAgent:
             # dependency-aware dispatch: wait for args BEFORE taking
             # resources or a worker (lease_dependency_manager.h:41-53) —
             # a ready lease interleaves past this one
+            self._note_on_hand(spec)
             self._park_for_deps(spec)
             return {"status": "granted"}
         if spec.pg_reservation is not None:
@@ -1030,6 +1041,7 @@ class NodeAgent:
             self._release(scalar_alloc)
             return {"status": "reject", "available": self.ledger.avail_map()}
         alloc = scalar_alloc + (assign,)
+        self._note_on_hand(spec)
         if _has_env(spec.runtime_env):
             # pip/uv/conda runtime env: needs a worker bound to the built
             # env (dedicated interpreter path); dispatched individually —
@@ -2169,6 +2181,8 @@ class NodeAgent:
                 for aid in self._actor_workers
             ]
             held_leases = list(self._task_leases)
+        with self._report_cv:
+            on_hand = list(self._tasks_on_hand)
         lister = getattr(self.store, "list_objects", None)
         return NodeInfo(
             node_id=self.node_id,
@@ -2183,6 +2197,9 @@ class NodeAgent:
             # and releases any it no longer tracks (pinned-worker leak
             # guard across unpersisted head restarts)
             held_task_leases=held_leases,
+            # tasks still running or queued here: a restarted head lets
+            # them finish instead of re-driving them
+            tasks_on_hand=on_hand,
             # cross-node data plane: advertised so the head can grant
             # peer links to this node (endpoint + token in the grant)
             data_endpoint=(
@@ -2317,8 +2334,17 @@ class NodeAgent:
     # flight merges into ONE message — the RaySyncer batching that keeps
     # the head from drowning in per-task RPCs.
     # ------------------------------------------------------------------
+    def _note_on_hand(self, spec: LeaseRequest) -> None:
+        if spec.kind == "task":
+            with self._report_cv:
+                self._tasks_on_hand.add(spec.task_id)
+
     def _report_to_head(self, report: Dict[str, Any]) -> None:
         with self._report_cv:
+            self._tasks_on_hand.difference_update(report.get("finished", ()))
+            self._tasks_on_hand.difference_update(
+                f["task_id"] for f in report.get("failed", ())
+            )
             self._report_queue.append(report)
             self._report_cv.notify()
 
@@ -2973,6 +2999,11 @@ class NodeAgent:
                     "zygote_alive": bool(
                         self._zygote is not None and not self._zygote.broken
                     ),
+                    "zygote_pid": (
+                        self._zygote.proc.pid
+                        if self._zygote is not None
+                        else None
+                    ),
                     # process-wide spawn latency (shared across co-located
                     # agents in tests; authoritative on a real node)
                     "spawn_ms_fork": WORKER_SPAWN_MS.summary(
@@ -3150,6 +3181,9 @@ def main() -> None:  # pragma: no cover - exercised via subprocess in tests
     parser.add_argument("--store-capacity", type=int, default=1 << 28)
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
+    # the first zygote forks off now, while this process has one thread:
+    # it inherits the package and torch already imported
+    preforked = prefork() if cfg.fork_server else None
     agent = NodeAgent(
         head_address=args.head,
         resources=json.loads(args.resources),
@@ -3157,6 +3191,7 @@ def main() -> None:  # pragma: no cover - exercised via subprocess in tests
         num_workers=args.num_workers,
         store_capacity=args.store_capacity,
         node_id=args.node_id,
+        preforked=preforked,
     )
     print(f"ray_tpu_torch agent {agent.node_id} listening on {agent.address}", flush=True)
     try:

@@ -90,6 +90,9 @@ class NodeInfo:
     # and releases any it no longer tracks, so leased workers never stay
     # pinned to a lease the control plane forgot
     held_task_leases: List[str] = field(default_factory=list)
+    # task ids this agent admitted and has not reported finished or failed
+    # yet — a restarted head never re-drives these (they finish here)
+    tasks_on_hand: List[str] = field(default_factory=list)
     # cross-node data plane (transport.py): where this node's stripe
     # server listens, and the per-incarnation auth token peers must
     # present on the data-path handshake. The head hands both out in

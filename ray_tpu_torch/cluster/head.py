@@ -346,6 +346,9 @@ class HeadServer:
         # (freed capacity takes an agent report round-trip to appear)
         self._preempt_cooldown: Dict[tuple, float] = {}
         self._in_flight: Dict[str, Tuple[LeaseRequest, str]] = {}
+        # tasks the last incarnation held unfinished that no re-registered
+        # agent has named as on hand yet (_recover_unfinished_tasks)
+        self._unfinished_at_load: set = set()
         # streaming-generator state: task_id -> {"items": [hex...],
         # "done": bool, "consumed": int, "touched": monotonic}
         # (object_ref_generator.py analog; items arrive via ReportSeals
@@ -701,6 +704,21 @@ class HeadServer:
                     for lid, spec in self._leases.items()
                     if spec.kind == "task" and spec.return_ids
                 },
+                # the tasks among them whose returns were not sealed yet
+                # (queued, parked or running here): a queue lives only in
+                # this process, so the next incarnation re-drives those
+                # that no agent finishes (_recover_unfinished_tasks)
+                "unfinished_leases": [
+                    lid
+                    for lid, spec in self._leases.items()
+                    if spec.kind == "task"
+                    and spec.return_ids
+                    and any(
+                        self._objects.get(rid) is not None
+                        and not self._objects[rid].event.is_set()
+                        for rid in spec.return_ids
+                    )
+                ],
                 # active task leases: TTL expiry / revoke-on-death keep
                 # working across a restart (owners stream direct anyway)
                 "task_leases": [
@@ -995,6 +1013,22 @@ class HeadServer:
                 name="head-actor-recover",
                 daemon=True,
             ).start()
+        # tasks the last incarnation held unfinished: re-registering agents
+        # name those they still run and redeliver the seals of those they
+        # ran; after a grace period, re-drive the rest or their getters
+        # wait forever
+        unfinished = [
+            lid for lid in snap.get("unfinished_leases", ())
+            if lid in self._leases
+        ]
+        self._unfinished_at_load = set(unfinished)
+        if unfinished:
+            threading.Thread(
+                target=self._recover_unfinished_tasks,
+                args=(unfinished,),
+                name="head-task-recover",
+                daemon=True,
+            ).start()
 
     def _restore_peer_link(self, row: dict) -> None:
         """Rebuild one persisted peer-link row (expiry rebased; at least
@@ -1053,6 +1087,79 @@ class HeadServer:
                 "resubmitting %d recovered actor creations with no "
                 "hosting agent",
                 len(to_create),
+            )
+
+    def _recover_unfinished_tasks(self, lease_ids: List[str]) -> None:
+        """Re-drive the tasks a previous incarnation held unfinished (its
+        queue, its parked work, its dispatches) that no re-registered agent
+        named as on hand and whose returns are still unsealed, uncopied and
+        unclaimed after the health timeout: every live agent has
+        re-registered, named the tasks it still runs and redelivered the
+        seals of the tasks it ran by then, and one that has not is declared
+        dead, its work lost anyway.
+        A task with retries left is queued again (at-least-once, as lineage
+        reconstruction is); a ``max_retries=0`` task's returns fail with
+        ``ObjectLostError`` (at-most-once: it may have run) instead of
+        leaving their getters waiting forever."""
+        from ray_tpu_torch.core.object_store import ObjectLostError
+
+        time.sleep(cfg.health_timeout_s)
+        requeued, failed = [], []
+        with self._cond:
+            if self._shutdown:
+                return
+            lease_ids = [
+                lid for lid in lease_ids if lid in self._unfinished_at_load
+            ]
+            self._unfinished_at_load = set()
+            queued = {
+                s.task_id
+                for q in (
+                    self._pending,
+                    self._infeasible,
+                    self._scheduling_batch,
+                    *self._deferred_rounds.values(),
+                )
+                for s in q
+            }
+            for lid in lease_ids:
+                spec = self._leases.get(lid)
+                if spec is None or lid in self._in_flight or lid in queued:
+                    continue
+                entries = [self._objects.get(rid) for rid in spec.return_ids]
+                if any(
+                    e is None
+                    or e.event.is_set()
+                    or e.locations
+                    or e.inline is not None
+                    or e.error is not None
+                    for e in entries
+                ):
+                    continue
+                if spec.attempt >= spec.max_retries:
+                    failed.append(spec)
+                    continue
+                spec.attempt += 1
+                spec.target_node = None
+                self._pending.append(spec)
+                requeued.append(lid)
+            if requeued:
+                self._cond.notify_all()
+        for spec in failed:
+            self._seal_error_ids(
+                list(spec.return_ids),
+                ObjectLostError(
+                    f"task {spec.task_id[:8]} was unfinished when the head "
+                    "restarted and no agent finished it; max_retries="
+                    f"{spec.max_retries} refuses to re-execute it"
+                ),
+            )
+        if requeued or failed:
+            logger.info(
+                "re-driving %d tasks unfinished at the head's restart "
+                "(%d failed: no retries left)",
+                len(requeued),
+                len(failed),
             )
 
     def mark_dirty(self) -> None:
@@ -1228,6 +1335,8 @@ class HeadServer:
             self._pending.extend(self._infeasible)
             self._infeasible.clear()
             self._pgs_dirty = True
+            # a task this agent still runs finishes there: never re-drive it
+            self._unfinished_at_load.difference_update(info.tasks_on_hand)
             self._cond.notify_all()
         # re-attach actors this agent still hosts (head-restart recovery:
         # the actor instances kept running in the agent's workers)
@@ -6309,6 +6418,15 @@ class HeadServer:
             _best_effort(client.close)
         self._dispatch_pool.shutdown(wait=False, cancel_futures=True)
         self._server.stop()
+        # a head restart keeps the process: free the scheduler state's
+        # device memory now that no round runs (the loop has seen
+        # _shutdown), not when the collector reaches the old head's cycles
+        sched = getattr(self, "_sched_thread", None)
+        if self.device_state is not None and sched is not None:
+            if sched.is_alive() and threading.current_thread() is not sched:
+                sched.join(timeout=5.0)
+            if not sched.is_alive():
+                self.device_state.release()
 
 
 def main() -> None:  # pragma: no cover - exercised via subprocess in tests

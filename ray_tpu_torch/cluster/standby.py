@@ -103,6 +103,7 @@ class StandbyHead:
         self._actors: Dict[str, dict] = {}
         self._actor_specs: Dict[str, Any] = {}
         self._leases: Dict[str, Any] = {}
+        self._unfinished_leases: List[str] = []
         self._jobs: list = []
         self._streams: Dict[str, dict] = {}
         self._stream_tombstones: list = []
@@ -179,6 +180,7 @@ class StandbyHead:
         }
         self._actor_specs = dict(snap.get("actor_specs", {}))
         self._leases = dict(snap.get("leases", {}))
+        self._unfinished_leases = list(snap.get("unfinished_leases", []))
         self._jobs = list(snap.get("jobs", []))
         self._streams = {
             tid: dict(st) for tid, st in snap.get("streams", {}).items()
@@ -390,6 +392,7 @@ class StandbyHead:
                 "actor_specs": dict(self._actor_specs),
                 "jobs": list(self._jobs),
                 "leases": dict(self._leases),
+                "unfinished_leases": list(self._unfinished_leases),
                 "task_leases": [
                     dict(r) for r in self._task_leases.values()
                 ],

@@ -22,6 +22,15 @@ Design constraints that keep fork safe:
 - ``ray_tpu_torch._ids`` registers an ``os.register_at_fork`` hook, so forked
   workers never mint ids from an inherited entropy buffer.
 
+The agent's first zygote is forked from the agent process itself
+(``prefork``), before the agent starts a thread: the agent has already
+imported the package and torch, so that zygote is ready in milliseconds
+instead of paying a second interpreter start and import (seconds on a
+loaded host, which every new node's first worker waited out). Its first
+protocol line gives it the agent's address, the store path and its
+environment; a replacement zygote (after one broke) is spawned as a new
+process, since the agent has threads by then.
+
 Lifecycle chaining: the zygote exits on stdin EOF (its agent died), and
 forked workers exit when their parent pid is no longer the zygote's
 (their zygote died) — the same orphan check the cold path relies on, one
@@ -108,15 +117,101 @@ def fork_available() -> bool:
     return hasattr(os, "fork") and sys.platform != "win32"
 
 
+class PreforkedZygote:
+    """Popen-shaped handle for a zygote forked from the agent process
+    (``prefork``): its pid, the write end of its stdin and the read end of
+    its stdout. The zygote is the agent's own child, so ``waitpid`` reaps
+    it."""
+
+    def __init__(self, pid: int, stdin, stdout):
+        self.pid = pid
+        self.stdin = stdin
+        self.stdout = stdout
+        self.returncode: Optional[int] = None
+
+    def poll(self) -> Optional[int]:
+        if self.returncode is None:
+            try:
+                pid, status = os.waitpid(self.pid, os.WNOHANG)
+            except ChildProcessError:
+                self.returncode = -9
+                return self.returncode
+            if pid:
+                self.returncode = os.waitstatus_to_exitcode(status)
+        return self.returncode
+
+    def _signal(self, sig: int) -> None:
+        if self.poll() is None:
+            try:
+                os.kill(self.pid, sig)
+            except OSError:
+                pass
+
+    def kill(self) -> None:
+        import signal
+
+        self._signal(signal.SIGKILL)
+
+    def terminate(self) -> None:
+        import signal
+
+        self._signal(signal.SIGTERM)
+
+
+def prefork() -> Optional[PreforkedZygote]:
+    """Fork this process into a zygote that waits for its configuration
+    (the agent's address, the store path, its environment) as the
+    first line on its stdin, then serves the fork protocol. Call it only
+    while this process has one thread: the child keeps only the calling
+    thread. None where fork is unavailable or fails."""
+    if not fork_available() or threading.active_count() > 1:
+        return None
+    req_r, req_w = os.pipe()
+    rep_r, rep_w = os.pipe()
+    try:
+        pid = os.fork()
+    except OSError:
+        for fd in (req_r, req_w, rep_r, rep_w):
+            os.close(fd)
+        return None
+    if pid == 0:  # the zygote
+        code = 1
+        try:
+            os.close(req_w)
+            os.close(rep_r)
+            os.dup2(req_r, 0)
+            os.dup2(rep_w, 1)
+            os.close(req_r)
+            os.close(rep_w)
+            conf = json.loads(sys.stdin.readline() or "null")
+            if conf is not None:
+                os.environ.update(conf.get("env") or {})
+                _serve(conf["agent"], conf.get("store", ""))
+            code = 0
+        finally:
+            os._exit(code)  # never the agent's exit handlers
+    os.close(req_r)
+    os.close(rep_w)
+    return PreforkedZygote(pid, os.fdopen(req_w, "wb", buffering=0), os.fdopen(rep_r, "rb", buffering=0))
+
+
 class ZygoteClient:
     """Agent-side handle to one zygote process.
 
     ``fork_worker`` is the only hot call: serialized under one lock
     (forks are ms-scale), returns a ``ForkedProc`` or ``None`` on ANY
     failure — the caller falls back to cold spawn. A client that broke
-    stays broken (the agent may start a replacement)."""
+    stays broken (the agent may start a replacement). Given ``preforked``
+    (``prefork``'s handle), the client configures that zygote instead of
+    spawning one."""
 
-    def __init__(self, agent_address: str, store_path: str, env: Dict[str, str]):
+    def __init__(
+        self,
+        agent_address: str,
+        store_path: str,
+        env: Dict[str, str],
+        preforked: Optional[PreforkedZygote] = None,
+    ):
         self._lock = threading.Lock()
         self._buf = b""
         self.broken = False
@@ -124,6 +219,12 @@ class ZygoteClient:
         # pids the zygote reaped — the pid-reuse-proof death signal
         # ForkedProc.poll consults (set ops are GIL-atomic)
         self.exited: set = set()
+        if preforked is not None:
+            self.proc = preforked
+            conf = {"agent": agent_address, "store": store_path, "env": dict(env)}
+            self.proc.stdin.write(json.dumps(conf).encode() + b"\n")
+            self.proc.stdin.flush()
+            return
         self.proc = subprocess.Popen(
             [
                 sys.executable,
@@ -286,12 +387,18 @@ def _child_main(agent_address: str, store_path: str, req: dict, zygote_pid: int)
 
 def main() -> None:
     import argparse
-    import signal
 
     parser = argparse.ArgumentParser(description="ray_tpu_torch worker fork-server")
     parser.add_argument("--agent", required=True)
     parser.add_argument("--store", default="")
     args = parser.parse_args()
+    _serve(args.agent, args.store)
+
+
+def _serve(agent_address: str, store_path: str) -> None:
+    """The zygote's life: warm the imports, say ready, serve forks until
+    stdin closes."""
+    import signal
 
     # Pay the worker's import graph ONCE, pre-fork: the package (and so
     # torch) is imported, but CUDA is not initialised, so no driver state
@@ -343,7 +450,7 @@ def main() -> None:
             continue
         if pid == 0:
             try:
-                _child_main(args.agent, args.store, req, zygote_pid)
+                _child_main(agent_address, store_path, req, zygote_pid)
             finally:
                 os._exit(1)
         reply({"pid": pid})

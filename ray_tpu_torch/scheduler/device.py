@@ -385,6 +385,24 @@ class DeviceSchedulerState:
         with self._lock:
             self._synced_topo = -1
 
+    def release(self) -> None:
+        """Drop every resident tensor (the view's mirror, node types,
+        throughput factors, the ring's rows), so a stopped head frees its
+        device memory when it stops, not when the garbage collector reaches
+        its cycles. A later ``sync`` uploads afresh."""
+        with self._lock:
+            self._totals = self._avail = self._alive = None
+            self._ntypes = self._thr = None
+            self._ring_dev = None  # the next flush uploads every host row
+            self._synced_topo = -1
+
+    def resident_bytes(self) -> int:
+        """Bytes of the device tensors this state holds now."""
+        with self._lock:
+            held = (self._totals, self._avail, self._alive, self._ntypes, self._thr,
+                    self._ring_dev)
+        return sum(t.untyped_storage().nbytes() for t in held if t is not None)
+
     def resident_arrays(self):
         """(totals, avail, alive) device refs for read-only consumers (PG
         bundle packing, autoscaler residual packing, slot estimation).

@@ -760,6 +760,10 @@ class RouterFleet:
             if router is None:
                 return  # already processed
             self.dead.add(rid)
+            # the ring drops the router in the same step: a stream that
+            # fails over while the kill and the leave below run must not
+            # be routed back to it (_owner would find no router)
+            self._rebuild_ring()
         router.chaos_kill()
         try:
             reply = self._coord.leave(self._dep, rid)
@@ -769,7 +773,6 @@ class RouterFleet:
                 )
         except Exception:  # noqa: BLE001 - head mid-failover
             pass
-        self._rebuild_ring()
         SERVE_ROUTERS_LIVE.set(len(self.routers), labels=self._labels)
 
     # -- request surface (router protocol) ------------------------------

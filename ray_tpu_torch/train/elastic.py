@@ -284,6 +284,10 @@ class _GangHubActor:
         # needs the previous wave too or no single step has coverage.
         self.seals: Dict[int, List[dict]] = {}
         self.seal_history = 4
+        # allreduce_shards: op id -> the reduced answer, and the ranks yet
+        # to take it
+        self.sums: Dict[str, dict] = {}
+        self.sum_remaining: Dict[str, set] = {}
         self._asyncio = asyncio
 
     async def configure(self, epoch: int, world: int) -> int:
@@ -293,6 +297,8 @@ class _GangHubActor:
         self.world = int(world)
         self.slots.clear()
         self.remaining.clear()
+        self.sums.clear()
+        self.sum_remaining.clear()
         for ev in self.events.values():
             ev.set()
         self.events.clear()
@@ -343,6 +349,43 @@ class _GangHubActor:
             self.events.pop(op_id, None)
             self.remaining.pop(op_id, None)
         return out
+
+    async def collect_sum(
+        self,
+        op_id: str,
+        epoch: int,
+        rank: int,
+        partials: Dict[int, Any],
+        timeout: float = 60.0,
+    ):
+        """``collect`` of every rank's ``{virtual_shard: pytree}``
+        partials, answered with ``{"shards": [...], "sum": tree}``: the
+        tree-sum over the shards in ascending order, computed once here,
+        on the same host values in the same order as a rank would fold
+        them, so each rank takes one sum instead of every rank's
+        partials."""
+        out = await self.collect(op_id, epoch, rank, partials, timeout)
+        if out is None or isinstance(out, dict):  # timed out, or revoked
+            return out
+        res = self.sums.get(op_id)
+        if res is None:
+            merged: Dict[int, Any] = {}
+            for d in out:
+                merged.update(d)
+            shards = sorted(merged)
+            res = self.sums[op_id] = {
+                "shards": shards,
+                "sum": pytree.tree_map(
+                    lambda *xs: _reduce(operator.add, xs),
+                    *[merged[v] for v in shards],
+                ),
+            }
+        rem = self.sum_remaining.setdefault(op_id, set(range(self.world)))
+        rem.discard(rank)
+        if not rem:
+            self.sums.pop(op_id, None)
+            self.sum_remaining.pop(op_id, None)
+        return res
 
     async def note_seal(
         self, rank: int, step: int, hex_id: str, vidx: List[int], epoch: int
@@ -422,10 +465,10 @@ class GangContext:
             return False
         return int(reply.get("epoch", 0)) > self.epoch
 
-    def _rendezvous(self, op: str, value: Any) -> List[Any]:
+    def _rendezvous(self, op: str, value: Any, method: str = "collect") -> Any:
         op_id = self._op_id(op)
         try:
-            ref = self.hub.collect.remote(
+            ref = getattr(self.hub, method).remote(
                 op_id, self.epoch, self.rank, value, self.timeout_s
             )
             # wait in slices; between slices the head's epoch decides
@@ -478,20 +521,15 @@ class GangContext:
         tree is a function of the virtual grid, not of the current
         world size, which is what makes a dp shrink/grow numerically
         invisible. ``operator.add`` is ``np.add`` for numpy leaves and
-        ``torch.add`` for tensors."""
-        gathered = self._rendezvous("allreduce_shards", partials)
-        merged: Dict[int, Any] = {}
-        for d in gathered:
-            merged.update(d)
-        if len(merged) != self.virtual_shards:
+        ``torch.add`` for tensors. The hub folds once and hands every rank
+        the sum (``_GangHubActor.collect_sum``)."""
+        out = self._rendezvous("allreduce_shards", partials, method="collect_sum")
+        if len(out["shards"]) != self.virtual_shards:
             raise GangEpochRevoked(
                 f"gang {self.gang_id}: shard coverage "
-                f"{sorted(merged)} != {self.virtual_shards} virtual shards"
+                f"{out['shards']} != {self.virtual_shards} virtual shards"
             )
-        ordered = [merged[v] for v in sorted(merged)]
-        return pytree.tree_map(
-            lambda *xs: _reduce(operator.add, xs), *ordered
-        )
+        return out["sum"]
 
 
 # ---------------------------------------------------------------------------

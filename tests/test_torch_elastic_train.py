@@ -1,7 +1,8 @@
 """The port's elastic SPMD training (``ray_tpu_torch.train.elastic``) on
 the CPU.
 
-Mirrors the twelve non-slow cases of ``tests/test_elastic_train.py`` on
+Mirrors the twelve non-slow cases of ``tests/test_elastic_train.py`` and
+its slow chaos case (through ``ray_tpu_torch.chaos``'s invariant checker) on
 ``ray_tpu_torch`` with the same assertions: partition rules and the
 shard/gather functions (specs are the port's tuples of axis names, the
 mesh a CPU one), seal/regather round trips (full and ZeRO-style
@@ -191,6 +192,42 @@ def test_gang_hub_rejects_stale_epoch_and_wakes_parked_waiters():
         assert out0 == ["x", "y"] and out1 == ["x", "y"]
 
     asyncio.run(drive())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gang_hub_folds_the_shards_once_in_shard_order(dtype):
+    """``collect_sum`` answers both ranks with one sum over the shards in
+    ascending order, bit-equal to the fold a rank made of the gathered
+    partials (the hub now folds, so a rank takes one sum instead of every
+    rank's partials), and frees the op once both ranks took it."""
+    import asyncio
+    from functools import reduce
+
+    from ray_tpu_torch.train import pytree
+    from ray_tpu_torch.train.elastic import _GangHubActor
+
+    g = torch.Generator().manual_seed(5)
+    parts = {v: {"w": torch.randn(64, generator=g).to(dtype),
+                 "b": {"c": torch.randn(3, generator=g).to(dtype)}} for v in range(4)}
+    want = pytree.tree_map(lambda *xs: reduce(lambda a, b: a + b, xs),
+                           *[parts[v] for v in range(4)])
+    hub = _GangHubActor("g2", epoch=1, world=2)
+
+    async def drive():
+        t1 = asyncio.create_task(
+            hub.collect_sum("allreduce_shards:0", 1, 1, {1: parts[1], 3: parts[3]}, timeout=10))
+        out0 = await hub.collect_sum("allreduce_shards:0", 1, 0, {0: parts[0], 2: parts[2]},
+                                     timeout=10)
+        out1 = await asyncio.wait_for(t1, timeout=5)
+        assert await hub.collect_sum("op:9", 0, 0, {}) == {"revoked": 1}
+        return out0, out1
+
+    out0, out1 = asyncio.run(drive())
+    for out in (out0, out1):
+        assert out["shards"] == [0, 1, 2, 3]
+        for a, b in zip(pytree.leaves(out["sum"]), pytree.leaves(want)):
+            assert a.dtype == dtype and torch.equal(a, b)
+    assert hub.sums == {} and hub.sum_remaining == {}
 
 
 # ---------------------------------------------------------------------------
@@ -392,19 +429,133 @@ def test_ranks_outliving_their_dead_agent_count_as_dead(monkeypatch):
 
 
 def _zygote_of(cluster, node_id: str) -> int:
-    """The pid of ``node_id``'s zygote: the child of its agent that runs
-    ``ray_tpu_torch.cluster.zygote`` (the workers it forks keep its
-    command line)."""
+    """The pid of ``node_id``'s zygote, as its agent reports it (the first
+    zygote is forked from the agent, so it shares the agent's command
+    line, as do the workers it forks), checked to be the agent's child."""
+    from ray_tpu_torch.cluster.rpc import RpcClient
+
     agent = cluster._agents[node_id].pid
-    for pid in filter(str.isdigit, os.listdir("/proc")):
-        try:
-            cmd = open(f"/proc/{pid}/cmdline", "rb").read()
-            stat = open(f"/proc/{pid}/stat").read()
-        except OSError:
-            continue
-        if b"ray_tpu_torch.cluster.zygote" in cmd and int(stat.rsplit(")", 1)[1].split()[1]) == agent:
-            return int(pid)
+    client = RpcClient(cluster.agent_address(node_id))
+    try:
+        pid = client.call("DebugState", timeout=10.0)["pool"]["zygote_pid"]
+    finally:
+        client.close()
+    try:
+        stat = open(f"/proc/{pid}/stat").read() if pid else ""
+    except OSError:
+        stat = ""
+    if stat and int(stat.rsplit(")", 1)[1].split()[1]) == agent:
+        return int(pid)
     raise AssertionError(f"no zygote under the agent of {node_id}")
+
+
+@pytest.mark.slow
+def test_chaos_node_kill_reshape_and_grow_back(monkeypatch):
+    from ray_tpu_torch.chaos.invariants import InvariantChecker
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.train import ElasticConfig, ElasticTrainer
+
+    monkeypatch.setenv("RAY_TPU_HEALTH_TIMEOUT_S", "2.0")
+    total_steps = 40
+
+    # closures (not module-level fns): cloudpickle ships them BY VALUE,
+    # so the cluster's worker processes never need this test module on
+    # their import path
+    def el_init(config):
+        d = int(config["dim"])
+        return {"w": np.zeros(d), "opt": {"m": np.zeros(d)}}
+
+    def el_step(state, step, gang, config):
+        d = int(config["dim"])
+        partials = {}
+        for v in gang.owned_shards():
+            partials[v] = {"g": np.full(d, float((v + step) % 7))}
+        g = gang.allreduce_shards(partials)
+        time.sleep(float(config.get("step_sleep", 0.0)))
+        return (
+            {"w": state["w"] + g["g"], "opt": {"m": state["opt"]["m"] + 1.0}},
+            {"step": step, "world": gang.world, "w0": float(state["w"][0])},
+        )
+
+    cluster = Cluster(use_device_scheduler=False)
+    cluster.add_node({"CPU": 2.0}, num_workers=2)
+    cluster.add_node({"CPU": 2.0}, num_workers=2)
+    rt = cluster.client()
+    set_runtime(rt)
+    try:
+        trainer = ElasticTrainer(
+            el_init,
+            el_step,
+            total_steps=total_steps,
+            train_loop_config={"dim": 64, "step_sleep": 0.08},
+            elastic_config=ElasticConfig(
+                min_workers=1,
+                max_workers=2,
+                virtual_shards=4,
+                seal_interval_steps=2,
+                elastic_shard_rules=(r"^opt/m$",),
+                grow=True,
+                placement_strategy="STRICT_SPREAD",
+                resources_per_worker={"CPU": 1.0},
+            ),
+        )
+        box = {}
+        th = threading.Thread(target=lambda: box.update(res=trainer.fit()))
+        th.start()
+        # let it make real progress, then SIGKILL the node hosting rank 1
+        deadline = time.monotonic() + 90
+        while (
+            trainer.progress()["step"] < 8
+            and time.monotonic() < deadline
+            and th.is_alive()
+        ):
+            time.sleep(0.1)
+        gangs = rt.head.call("QueryState", {"kind": "gangs"})
+        gang = gangs[trainer.gang_id]
+        victim = gang["members"]["1"]
+        pre_epochs = {trainer.gang_id: gang["epoch"]}
+        cluster.kill_node(victim)
+        # membership invariant: the gang fences the dead generation and
+        # re-registers a membership whose nodes are all alive
+        checker = InvariantChecker(cluster, workload=None)
+        assert checker.wait_gang_reshaped(pre_epochs, timeout=60) == []
+        # capacity returns: the watch loop must fence + grow back
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline and th.is_alive():
+            if any(r["direction"] == "shrink" for r in trainer.reshape_log):
+                break
+            time.sleep(0.2)
+        cluster.add_node({"CPU": 2.0}, num_workers=2)
+        th.join(timeout=240)
+        assert not th.is_alive(), "elastic fit() wedged after node kill"
+        res = box["res"]
+        assert res.error is None, res.error
+        el = res.metrics["elastic"]
+        directions = [r["direction"] for r in el["reshapes"]]
+        assert "shrink" in directions, el["reshapes"]
+        assert "grow" in directions, el["reshapes"]
+        # checkpoint-free: lineage/object-plane only, zero disk reads
+        assert el["disk_restores"] == 0
+        # loss-curve continuity across the reshapes: every step reported
+        # exactly once, and the reported scalar matches the closed form
+        # of the unreshaped run at every step (bit-exact: integer sums)
+        hist = res.metrics_history
+        assert [m["step"] for m in hist] == list(range(total_steps))
+        expected = 0.0
+        for s in range(total_steps):
+            assert hist[s]["w0"] == expected, f"divergence at step {s}"
+            expected += sum(float((v + s) % 7) for v in range(4))
+        state = trainer.final_state()
+        assert np.array_equal(state["w"], _expected_w(64, total_steps, 4))
+        assert np.array_equal(state["opt"]["m"], np.full(64, float(total_steps)))
+    finally:
+        set_runtime(None)
+        try:
+            rt.shutdown()
+        except Exception:  # noqa: BLE001
+            pass
+        cluster.shutdown()
 
 
 def _hub_node_death(monkeypatch, order: str):

@@ -644,3 +644,123 @@ def test_actor_method_waits_for_the_creation_push():
     drainer.join(10.0)
     assert not creator.is_alive() and not drainer.is_alive()
     assert pushed == ["actor_creation", "actor_method"]
+
+
+def test_head_restart_releases_the_old_heads_scheduler_state(tmp_path):
+    """A restarted head runs in the same process, so the stopped head
+    frees its scheduler state's device tensors at ``shutdown``, and only
+    the new head's state stays resident; the new head's rounds place."""
+    c = Cluster(persist_path=str(tmp_path / "head_state.pkl"))
+    c.add_node({"CPU": 2.0}, num_workers=2)
+    rt = c.client()
+    set_runtime(rt)
+    try:
+        f = ray_tpu_torch.remote(lambda x: x + 1)
+        assert ray_tpu_torch.get([f.remote(i) for i in range(8)], timeout=60) == list(
+            range(1, 9))
+        old = c.head.device_state
+        assert old is not None and old.resident_bytes() > 0
+        c.restart_head()
+        assert old.resident_bytes() == 0
+        assert old.resident_arrays() == (None, None, None)
+        assert c.head.device_state is not old
+        assert ray_tpu_torch.get([f.remote(i) for i in range(8, 16)], timeout=60) == list(
+            range(9, 17))
+        # a shape's first submission misses the client's lease cache, so
+        # it takes a round of the new head (cached leases skip the head)
+        deadline = time.monotonic() + 30
+        k = 0
+        while c.head.device_state.resident_bytes() == 0:
+            assert time.monotonic() < deadline, "the new head never synced its state"
+            k += 1
+            g = f.options(num_cpus=0.01 * k)
+            assert ray_tpu_torch.get(g.remote(k), timeout=60) == k + 1
+        assert old.resident_bytes() == 0
+    finally:
+        set_runtime(None)
+        rt.shutdown()
+        c.shutdown()
+
+
+def _task_value(i):
+    return i * 3
+
+
+def test_tasks_queued_at_a_restarted_head_complete(tmp_path):
+    """Tasks the head held unfinished when it restarted (here parked: no
+    node has their resource yet) live only in that head's queue. The new
+    head re-drives them from the persisted lineage once a grace period
+    lets agents redeliver what they ran, so the tasks run when the
+    resource arrives and their getters return (Queue C 16: the reference's
+    head forgets them and the getters wait forever); a max_retries=0 task
+    fails with ObjectLostError instead of hanging."""
+    from ray_tpu_torch.core.object_store import ObjectLostError
+
+    c = Cluster(persist_path=str(tmp_path / "head_state.pkl"))
+    c.add_node({"CPU": 2.0}, num_workers=2)
+    rt = c.client()
+    set_runtime(rt)
+    try:
+        f = ray_tpu_torch.remote(_task_value)
+        assert ray_tpu_torch.get(f.remote(1), timeout=60) == 3
+        parked = [f.options(resources={"late": 1.0}).remote(i) for i in range(3)]
+        once = f.options(resources={"late": 1.0}, max_retries=0).remote(9)
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline:
+            with c.head._lock:
+                held = len(c.head._infeasible) + len(c.head._pending)
+            if held >= 4:
+                break
+            time.sleep(0.1)
+        assert held >= 4, f"the head holds {held} of the 4 parked tasks"
+        c.restart_head()
+        c.add_node({"CPU": 2.0, "late": 1.0}, num_workers=1)
+        assert ray_tpu_torch.get(parked, timeout=90) == [0, 3, 6]
+        with pytest.raises(ObjectLostError):
+            ray_tpu_torch.get(once, timeout=60)
+    finally:
+        set_runtime(None)
+        rt.shutdown()
+        c.shutdown()
+
+
+def _slow_value(path, i, sleep_s):
+    with open(path, "a") as fh:
+        fh.write(f"{i}\n")
+    time.sleep(sleep_s)
+    return i * 3
+
+
+def test_a_task_running_across_a_head_restart_runs_once(tmp_path, monkeypatch):
+    """Tasks the head dispatched that still run on their agent when the
+    head restarts, and run on past the new head's grace period, are named
+    by the re-registering agent as on hand: the new head lets them finish
+    there, so each runs once and returns its value, a max_retries=0 one
+    too (re-driving them would run them twice, or fail the second with
+    ObjectLostError while it still runs)."""
+    monkeypatch.setenv("RAY_TPU_HEALTH_TIMEOUT_S", "2.0")
+    log = tmp_path / "runs.txt"
+    c = Cluster(persist_path=str(tmp_path / "head_state.pkl"))
+    c.add_node({"CPU": 2.0}, num_workers=2)
+    rt = c.client()
+    set_runtime(rt)
+    try:
+        f = ray_tpu_torch.remote(_slow_value)
+        # two shapes, each submitted once: both go through the head
+        refs = [
+            f.options(num_cpus=1.0, max_retries=3).remote(str(log), 1, 7.0),
+            f.options(num_cpus=0.5, max_retries=0).remote(str(log), 2, 7.0),
+        ]
+        deadline = time.monotonic() + 30
+        while not (log.exists() and len(log.read_text().split()) >= 2):
+            assert time.monotonic() < deadline, "the tasks never started"
+            time.sleep(0.05)
+        with c.head._lock:
+            assert len(c.head._in_flight) == 2
+        c.restart_head()
+        assert ray_tpu_torch.get(refs, timeout=60) == [3, 6]
+        assert sorted(log.read_text().split()) == ["1", "2"]
+    finally:
+        set_runtime(None)
+        rt.shutdown()
+        c.shutdown()

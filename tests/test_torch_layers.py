@@ -175,3 +175,36 @@ def test_no_source_of_the_port_imports_jax_or_ray_tpu():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "optax", "ray_tpu"), f"{path}: imports {name}"
+
+
+def _names_a_reference_module(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "optax", "ray_tpu")
+
+
+def test_no_subprocess_or_dynamic_import_of_the_port_names_the_reference():
+    """An AST import scan does not see ``[sys.executable, "-m", "..."]``
+    or ``import_module("...")``: a reference module named there would fail
+    only on a machine without jax (the chip machine). Every ``-m`` module
+    and every constant dynamic import in the port and ``chip_smoke.py`` is
+    the port's own."""
+    files = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    seen = 0
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, (ast.List, ast.Tuple)):
+                elts = node.elts
+                names = [b.value for a, b in zip(elts, elts[1:])
+                         if isinstance(a, ast.Constant) and a.value == "-m"
+                         and isinstance(b, ast.Constant) and isinstance(b.value, str)]
+            elif isinstance(node, ast.Call) and node.args:
+                fn = node.func
+                fname = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+                arg = node.args[0]
+                if (fname in ("import_module", "__import__") and isinstance(arg, ast.Constant)
+                        and isinstance(arg.value, str)):
+                    names = [arg.value]
+            for name in names:
+                seen += 1
+                assert not _names_a_reference_module(name), f"{path}: names {name}"
+    assert seen > 0

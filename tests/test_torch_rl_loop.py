@@ -669,3 +669,334 @@ def test_rollout_between_publishes_runs_on_the_published_weights():
         assert int(block["epochs"][0]) == 0
     finally:
         loop.close()
+
+
+# ---------------------------------------------------------------------------
+# slow tier: the triple-plane chaos soak (tests/test_rl_loop.py's)
+# ---------------------------------------------------------------------------
+@pytest.mark.slow
+def test_rl_triple_chaos_soak(tmp_path):
+    """One run, three planes of chaos: a rollout replica SIGKILLed
+    mid-trajectory (token-exact resume + trajectory dedup), a
+    trainer-rank node SIGKILLed mid-step (gang reshape + loss-curve
+    continuity against a shadow trainer replaying the identical step
+    batches), and the head SIGKILLed INSIDE a seal->commit window
+    (standby promotes; publish atomicity). After every fault: weights
+    epochs converge and zero trajectories go unaccounted."""
+    import threading
+
+    import ray_tpu_torch
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.chaos import (
+        RL_MIX,
+        ChaosOrchestrator,
+        ChaosWorkload,
+        RLRolloutWorkload,
+        make_plan,
+    )
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.llm.continuous import ContinuousBatchingEngine
+    from ray_tpu_torch.llm.engine import GenerationConfig
+    from ray_tpu_torch.llm.serving import build_llm_deployment
+    from ray_tpu_torch.rl import (
+        TrajectoryFeed,
+        WeightsPublisher,
+        elastic_rl_init,
+        elastic_rl_step,
+        model_config_to_dict,
+    )
+    from ray_tpu_torch.rl.loop import sgd_step
+    from ray_tpu_torch.train import ElasticConfig, ElasticTrainer
+
+    # the serve plane byte-tokenizes prompts (ids up to bos=256), and the
+    # trainer computes CE loss over those same token ids — the model vocab
+    # must cover the tokenizer or loss_fn NaNs on out-of-vocab labels
+    mcfg = _small_cfg(vocab_size=258)
+    prompt = "rl rollout"
+    max_new = 8
+    gen = GenerationConfig(max_new_tokens=max_new, temperature=0.0, seed=0)
+    # replicas and the trainer draw the same seed-0 weights: one base
+    # model everywhere
+    base_params = _params(mcfg, 0)
+    ref_engine = ContinuousBatchingEngine(
+        mcfg, base_params, max_batch=2, page_size=8, n_pages=64, device="cpu"
+    )
+
+    def expected_tokens():
+        return [
+            ref_engine.tokenizer.decode([int(t)])
+            for t in ref_engine.stream_ids(
+                ref_engine.tokenizer.encode(prompt), gen
+            )
+        ]
+
+    expected_base = expected_tokens()
+    assert len(expected_base) == max_new
+
+    # head persistence is what feeds WAL shipping to the armed standby
+    cluster = Cluster(
+        use_device_scheduler=False,
+        persist_path=str(tmp_path / "head_state.pkl"),
+    )
+    cluster.add_node({"CPU": 8.0}, num_workers=3)
+    cluster.add_node({"CPU": 8.0}, num_workers=3)
+    # the feed actor gets its own tiny node so trainer_rank_kill (which
+    # SIGKILLs a node hosting trainer ranks) can never take the
+    # accounting ledger down with it
+    cluster.add_node({"CPU": 0.5, "FEED": 1.0}, num_workers=1)
+    rt = cluster.client()
+    set_runtime(rt)
+    cluster.start_standby(auto_promote=False)
+    workload = None
+    pump = None
+    stop_evt = threading.Event()
+    try:
+        FeedActor = ray_tpu_torch.remote(TrajectoryFeed)
+        feed = FeedActor.options(
+            name="rl-feed", num_cpus=0.25, resources={"FEED": 1.0}
+        ).remote(2)
+        ray_tpu_torch.get(feed.latest_epoch.remote(), timeout=60.0)
+
+        app = build_llm_deployment(
+            mcfg,
+            base_params,
+            name="rl-policy",
+            num_replicas=2,
+            engine="continuous",
+            max_batch=2,
+            page_size=8,
+            n_pages=64,
+            device="cpu",
+        )
+        serve.run(app)
+        router = serve.get_router("rl-policy")
+        assert router.resumable
+
+        publisher = WeightsPublisher(
+            "rl-policy", head_address=cluster.address
+        )
+        payload = {"prompt": prompt, "max_new_tokens": max_new}
+        workload = RLRolloutWorkload(
+            router,
+            payload,
+            {"base": expected_base},
+            publisher=publisher,
+            feed=feed,
+            concurrency=2,
+            # hashed trajectory ids must live inside the trainer model's
+            # vocab — OOV labels NaN the CE loss on both curve and shadow
+            token_space=mcfg.vocab_size,
+        )
+        workload.start()
+        _wait_for(
+            lambda: workload.completed >= 2,
+            timeout=240.0,
+            msg="warm rollout streams",
+        )
+        assert not workload.verify_failures
+
+        # throttled through the fault schedule (the trainer must outlive
+        # every fault), sprinted to the finish once chaos is done
+        ray_tpu_torch.get(feed.set_pace.remote(0.2), timeout=30.0)
+        trainer = ElasticTrainer(
+            elastic_rl_init,
+            elastic_rl_step,
+            total_steps=2500,
+            train_loop_config={
+                "model": model_config_to_dict(mcfg),
+                "seed": 0,
+                "batch_size": 4,
+                "lr": 0.01,
+                "feed_actor": "rl-feed",
+                "device": "cpu",
+            },
+            elastic_config=ElasticConfig(
+                min_workers=1,
+                max_workers=2,
+                virtual_shards=4,
+                seal_interval_steps=2,
+                grow=True,
+                placement_strategy="STRICT_SPREAD",
+                resources_per_worker={"CPU": 1.0},
+            ),
+        )
+        workload.trainer = trainer
+        fit_box = {}
+
+        def _fit():
+            try:
+                fit_box["res"] = trainer.fit()
+            except BaseException as exc:  # noqa: BLE001 - re-raised below
+                fit_box["exc"] = exc
+
+        fit_th = threading.Thread(target=_fit, daemon=True)
+        fit_th.start()
+        _wait_for(
+            lambda: trainer.progress()["step"] >= 2 or "exc" in fit_box,
+            timeout=240.0,
+            msg="trainer first steps",
+        )
+        if "exc" in fit_box:
+            raise fit_box["exc"]
+
+        # shadow trainer + publish pump: replays the feed's cached step
+        # batches in the driver (byte-identical to what the gang
+        # trained), publishes the shadow params under the two-phase
+        # fence, hot-swaps every replica, and registers the new epoch's
+        # reference sequence for verification
+        shadow = {"params": base_params, "step": 0}
+        shadow_losses = {}
+        pump_errors = []
+
+        def _pump():
+            while not stop_evt.is_set():
+                try:
+                    target = trainer.progress()["step"]
+                    while shadow["step"] < target and not stop_evt.is_set():
+                        s = shadow["step"]
+                        block = ray_tpu_torch.get(
+                            feed.take_for_step.remote(s, 4), timeout=60.0
+                        )
+                        if block is not None:
+                            tokens = torch.from_numpy(
+                                np.asarray(block["tokens"])
+                            ).to(torch.int64)
+                            loss, shadow["params"] = sgd_step(
+                                shadow["params"], tokens, mcfg, 0.01
+                            )
+                            shadow_losses[s] = float(loss)
+                        shadow["step"] = s + 1
+                    epoch = publisher.publish(shadow["params"])
+                    ray_tpu_torch.get(feed.note_epoch.remote(epoch), timeout=30.0)
+                    model_id = f"epoch-{epoch}"
+                    ref_engine.swap_params(
+                        shadow["params"], model_id=model_id
+                    )
+                    expected = expected_tokens()
+                    workload.broadcast_weights(
+                        shadow["params"], model_id, epoch
+                    )
+                    workload.register_model(model_id, expected)
+                except Exception as exc:  # noqa: BLE001 - head mid-failover
+                    pump_errors.append(repr(exc))
+                stop_evt.wait(1.0)
+
+        pump = threading.Thread(target=_pump, daemon=True)
+        pump.start()
+        try:
+            _wait_for(
+                lambda: workload.published_epoch() >= 1,
+                timeout=120.0,
+                msg="first weights publish",
+            )
+        except TimeoutError as exc:
+            raise AssertionError(
+                f"first publish never landed; shadow_step={shadow['step']} "
+                f"pump_errors={pump_errors[-5:]}"
+            ) from exc
+
+        plan = make_plan(
+            seed=14,
+            num_faults=4,
+            mix=RL_MIX,
+            allow=(
+                "rollout_kill",
+                "trainer_rank_kill",
+                "head_kill_mid_publish",
+            ),
+            min_delay_s=0.5,
+            max_delay_s=1.5,
+        )
+        # all three planes in ONE run (seed pinned for that property)
+        assert set(plan.counts()) == {
+            "rollout_kill",
+            "trainer_rank_kill",
+            "head_kill_mid_publish",
+        }
+        chaos_wl = ChaosWorkload(rt, payload_bytes=150_000, num_actors=1)
+        orch = ChaosOrchestrator(
+            cluster,
+            chaos_wl,
+            plan,
+            node_resources={"CPU": 8.0},
+            workers_per_node=3,
+            convergence_budget_s=180.0,
+            serve_adapter=workload,
+            rl_adapter=workload,
+        )
+        result = orch.run()
+        stop_evt.set()
+        workload.stop()
+        # cooperative finish now that chaos is over: unpace and latch
+        # the feed's stop flag — the gang completes its current step and
+        # exits together
+        ray_tpu_torch.get(feed.set_pace.remote(0.0), timeout=30.0)
+        ray_tpu_torch.get(feed.request_stop.remote(), timeout=30.0)
+        fit_th.join(timeout=420)
+        assert not fit_th.is_alive(), (
+            "trainer did not finish",
+            trainer.progress(),
+        )
+        if "exc" in fit_box:
+            raise fit_box["exc"]
+        res = fit_box["res"]
+        assert res.error is None, res.error
+        assert result.ok, result.summary()
+        # every fault genuinely fired — a skipped fault would publish a
+        # green soak for a scenario that never ran
+        for f in result.faults:
+            assert not f.detail.startswith("skipped"), (
+                f.spec.kind,
+                f.detail,
+            )
+        assert not workload.verify_failures, workload.verify_failures
+
+        # conservation law after the dust settles
+        acct = workload.trajectory_accounting()
+        assert acct["unaccounted"] == 0, acct
+        assert acct["emitted"] > 0
+
+        # loss-curve continuity: the gang's recorded losses equal the
+        # shadow's, computed from the identical cached step batches
+        hist = res.metrics_history
+        gang_losses = {
+            m["step"]: m["loss"]
+            for m in hist
+            if m.get("loss") == m.get("loss")  # drop NaN (empty steps)
+        }
+        diag = (
+            f"gang_trained={sorted(gang_losses)} "
+            f"shadow_trained={sorted(shadow_losses)} "
+            f"pump_errors={pump_errors[:6]} acct={acct}"
+        )
+        compared = 0
+        for s, lv in shadow_losses.items():
+            if s in gang_losses:
+                assert abs(gang_losses[s] - lv) < 1e-3, (
+                    s,
+                    gang_losses[s],
+                    lv,
+                    diag,
+                )
+                compared += 1
+        assert compared >= 5, (
+            f"only {compared} overlapping trained steps "
+            f"(shadow={len(shadow_losses)}, gang={len(gang_losses)}); "
+            + diag
+        )
+
+        # the publish fence kept moving through all three fault planes
+        assert workload.published_epoch() >= 3
+    finally:
+        stop_evt.set()
+        if pump is not None:
+            pump.join(timeout=30)
+        if workload is not None:
+            workload.stop()
+        serve.shutdown()
+        set_runtime(None)
+        try:
+            rt.shutdown()
+        finally:
+            cluster.shutdown()

@@ -3,8 +3,8 @@ cases on ``ray_tpu_torch`` (consistent-hash tenant assignment,
 head-reconciled admission shards, epoch-fenced stream leases, token-exact
 cross-router stream failover), plus ``HashRing`` and
 ``compute_budget_shares`` held equal to the JAX package's for the same
-inputs. The reference's slow case runs its router kills under the chaos
-orchestrator, which the port does not have yet.
+inputs; and its slow case, a router kill mid-stream under the port's
+chaos orchestrator (``ray_tpu_torch.chaos``).
 """
 import threading
 import time
@@ -328,6 +328,35 @@ def test_fleet_kill_reassigns_fences_and_refuses_lone_router(monkeypatch):
         assert ei.value.current_epoch == 3
         # killing the last router would be an outage, not a failover test
         assert fleet.chaos_kill_router() is None
+    finally:
+        fleet.close()
+
+
+def test_stream_failing_over_during_a_kill_is_routed_to_the_sibling(monkeypatch):
+    """A killed router's streams fail over while the kill is still
+    running (its push endpoint closes before the assignment table hears
+    of the leave). The ring must already have dropped the router then:
+    the reference rebuilt it only after the leave, so a stream failing
+    over in that window met a KeyError in ``_owner`` and ended in an error
+    instead of resuming (Queue C 17)."""
+    fleet = _make_fleet(
+        monkeypatch, "race", 2, RAY_TPU_SERVE_BUDGET_RECONCILE_S="30"
+    )
+    try:
+        victim = fleet.router_for("tenant-a")
+        sibling = ({"race/r0", "race/r1"} - {victim}).pop()
+        router = fleet.routers[victim]
+        kill = router.chaos_kill
+        seen = []
+
+        def chaos_kill():
+            # what a failing-over stream's thread asks while the kill runs
+            seen.append(fleet._owner("tenant-a")[0])
+            kill()
+
+        router.chaos_kill = chaos_kill
+        assert fleet.chaos_kill_router(rid=victim) == victim
+        assert seen == [sibling]
     finally:
         fleet.close()
 
@@ -727,6 +756,92 @@ def test_cluster_fleet_unary_and_stats_surface(cluster, client, monkeypatch):
 # ---------------------------------------------------------------------------
 # slow tier: router_kill faults under the chaos orchestrator
 # ---------------------------------------------------------------------------
+@pytest.mark.slow
+def test_router_kill_streams_resume_cross_router(monkeypatch):
+    """Open-loop verified token streams across a 2-router fleet + a
+    router_kill fault: every stream in flight on the corpse completes
+    token-exact on the sibling (the cross-router resume invariant),
+    fresh streams keep completing, and no arena pins leak."""
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.chaos import (
+        ROUTER_MIX,
+        ChaosOrchestrator,
+        ChaosWorkload,
+        ServeStreamWorkload,
+        make_plan,
+    )
+    from ray_tpu_torch.cluster import Cluster
+
+    monkeypatch.setenv("RAY_TPU_SERVE_ROUTERS", "2")
+    monkeypatch.setenv("RAY_TPU_SERVE_SHM_STREAMS", "0")
+    n_tokens = 12
+    expected = [f"tok{i}" for i in range(n_tokens)]
+    cluster = Cluster(use_device_scheduler=False)
+    cluster.add_node({"CPU": 8.0}, num_workers=3)
+    cluster.add_node({"CPU": 8.0}, num_workers=3)
+    rt = cluster.client()
+    set_runtime(rt)
+    workload = None
+    try:
+        app = serve.deployment(
+            name="chaos-fleet", num_replicas=2, resumable_streams=True
+        )(_FleetTokenServer).bind()
+        serve.run(app)
+        fleet = serve.get_router("chaos-fleet")
+        assert fleet.resumable and len(fleet.routers) == 2
+        payload = {"n": n_tokens, "delay_s": 0.05}
+        workload = ServeStreamWorkload(
+            fleet,
+            payload,
+            expected,
+            concurrency=4,
+            tenants=[f"t{i}" for i in range(4)],
+        )
+        workload.start()
+        _wait_for(
+            lambda: workload.completed >= 4,
+            timeout=120.0,
+            msg="warm fleet streams",
+        )
+        assert not workload.verify_failures
+        plan = make_plan(
+            seed=7,
+            num_faults=1,
+            mix=ROUTER_MIX,
+            allow=("router_kill",),
+            min_delay_s=0.5,
+            max_delay_s=1.0,
+        )
+        assert plan.counts() == {"router_kill": 1}
+        chaos_wl = ChaosWorkload(rt, payload_bytes=150_000, num_actors=1)
+        orch = ChaosOrchestrator(
+            cluster,
+            chaos_wl,
+            plan,
+            node_resources={"CPU": 8.0},
+            convergence_budget_s=120.0,
+            serve_adapter=workload,
+        )
+        result = orch.run()
+        workload.stop()
+        assert result.ok, result.summary()
+        assert not workload.verify_failures, workload.verify_failures
+        assert workload.routers_killed == 1
+        outcomes = workload.watched_outcomes()
+        assert outcomes, "router_kill landed on no in-flight streams"
+        assert all(v == "ok" for v in outcomes.values()), outcomes
+        assert workload.routers_live() == 1
+        # acceptance: zero leaked arena pins after the fault
+        assert result.arena_zombies_after == 0
+    finally:
+        if workload is not None:
+            workload.stop()
+        serve.shutdown()
+        set_runtime(None)
+        try:
+            rt.shutdown()
+        finally:
+            cluster.shutdown()
 
 
 # ---------------------------------------------------------------------------

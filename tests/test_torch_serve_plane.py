@@ -4,9 +4,9 @@ does not mirror (the push-plane stream sink, the relay fallback, the SLO
 autoscaler, zero per-request head RPCs in the steady state, a stream end
 to end with an admission shed, a disconnect mid-stream, the
 ``QueryState("serve")`` surface), with ``ray_tpu`` read as
-``ray_tpu_torch`` and the scheduler's rounds on the host. The reference's
-slow case runs its replica kill under the chaos orchestrator, which the
-port does not have yet.
+``ray_tpu_torch`` and the scheduler's rounds on the host; and its slow
+case, two replica kills mid-stream under the port's chaos orchestrator
+(``ray_tpu_torch.chaos``), the replicas' engines on the CPU.
 """
 import time
 
@@ -332,3 +332,117 @@ def test_query_state_serve_surface(cluster, client):
     assert blob["admission"]["admitted"] >= 1
     assert len(blob["replicas"]) == 1
     assert "lease_hit_rate" in blob and "ttft_ms" in blob
+
+
+# ---------------------------------------------------------------------------
+# slow tier: replica SIGKILL mid-stream under the chaos orchestrator
+# ---------------------------------------------------------------------------
+@pytest.mark.slow
+def test_replica_kill_mid_stream_recovers():
+    """Open-loop verified streams + two replica_kill faults: streams
+    fail over with resume_from (no duplicated/dropped acked tokens),
+    the replica set backfills, and no arena pins leak."""
+    import torch
+
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.chaos import (
+        SERVE_MIX,
+        ChaosOrchestrator,
+        ChaosWorkload,
+        ServeStreamWorkload,
+        make_plan,
+    )
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.llm.continuous import ContinuousBatchingEngine
+    from ray_tpu_torch.llm.engine import GenerationConfig
+    from ray_tpu_torch.llm.serving import build_llm_deployment
+    from ray_tpu_torch.models import transformer as tfm
+
+    # vocab 258 where the reference has 64: the byte tokenizer's BOS is
+    # 256, which JAX's embedding gather clamps into a 64-row table and
+    # torch's indexing refuses
+    mcfg = tfm.ModelConfig(
+        vocab_size=258, d_model=48, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=96, max_seq_len=96, dtype=torch.float32,
+    )
+    params = tfm.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = "chaos stream"
+    max_new = 10
+    # the deterministic reference sequence: the replicas' weights, on the
+    # same engine
+    ref_engine = ContinuousBatchingEngine(
+        mcfg, params, max_batch=2, page_size=8, n_pages=64, device="cpu"
+    )
+    gen = GenerationConfig(max_new_tokens=max_new, temperature=0.0, seed=0)
+    expected = [
+        ref_engine.tokenizer.decode([int(t)])
+        for t in ref_engine.stream_ids(
+            ref_engine.tokenizer.encode(prompt), gen
+        )
+    ]
+    assert len(expected) == max_new
+
+    cluster = Cluster(use_device_scheduler=False)
+    cluster.add_node({"CPU": 8.0}, num_workers=3)
+    cluster.add_node({"CPU": 8.0}, num_workers=3)
+    rt = cluster.client()
+    set_runtime(rt)
+    workload = None
+    try:
+        app = build_llm_deployment(
+            mcfg,
+            params,
+            name="chaos-llm",
+            num_replicas=2,
+            engine="continuous",
+            max_batch=2,
+            page_size=8,
+            n_pages=64,
+            device="cpu",
+        )
+        serve.run(app)
+        router = serve.get_router("chaos-llm")
+        assert router.resumable
+        payload = {"prompt": prompt, "max_new_tokens": max_new}
+        workload = ServeStreamWorkload(
+            router, payload, expected, concurrency=2
+        )
+        workload.start()
+        # warm: both replicas up, streams completing
+        _wait_for(
+            lambda: workload.completed >= 2,
+            timeout=180.0,
+            msg="warm serve streams",
+        )
+        assert not workload.verify_failures
+        plan = make_plan(
+            seed=11, num_faults=2, mix=SERVE_MIX, allow=("replica_kill",),
+            min_delay_s=0.5, max_delay_s=1.0,
+        )
+        assert plan.counts() == {"replica_kill": 2}
+        chaos_wl = ChaosWorkload(rt, payload_bytes=150_000, num_actors=1)
+        orch = ChaosOrchestrator(
+            cluster,
+            chaos_wl,
+            plan,
+            node_resources={"CPU": 8.0},
+            convergence_budget_s=120.0,
+            serve_adapter=workload,
+        )
+        result = orch.run()
+        workload.stop()
+        assert result.ok, result.summary()
+        assert not workload.verify_failures, workload.verify_failures
+        assert workload.completed >= 3
+        # acceptance: no leaked pins anywhere (SIGKILLed replicas'
+        # prefix-cache pins were replayed from their pin logs)
+        assert result.arena_zombies_after == 0
+    finally:
+        if workload is not None:
+            workload.stop()
+        serve.shutdown()
+        set_runtime(None)
+        try:
+            rt.shutdown()
+        finally:
+            cluster.shutdown()

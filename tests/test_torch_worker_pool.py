@@ -219,3 +219,55 @@ def test_fork_disabled_cold_spawn_fallback(monkeypatch, tmp_path):
             assert pool["zygote_alive"] is False, stats
     finally:
         pc.shutdown()
+
+
+def _cmdline(pid: int) -> str:
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        return f.read().replace(b"\0", b" ").decode()
+
+
+@pytest.mark.skipif(not os.path.exists("/proc/self/cmdline"), reason="needs /proc")
+def test_first_zygote_is_forked_from_the_agent_and_a_replacement_follows():
+    """The agent forks its first zygote from itself before it starts a
+    thread (its imports already paid), so that zygote's command line is
+    the agent's; workers fork from it. After the zygote is killed, the
+    agent spawns a replacement zygote process, and new workers keep
+    forking."""
+    pc = _PoolCluster(num_workers=1)
+    try:
+        f = ray_tpu_torch.remote(lambda i: i + 1).options(num_cpus=0.1)
+        assert ray_tpu_torch.get(f.remote(1), timeout=120) == 2
+        (nid, pool), = _pool_stats(pc.cluster).items()
+        assert pool["zygote_alive"] and pool["forked"] >= 1, pool
+        assert "ray_tpu_torch.cluster.agent" in _cmdline(pool["zygote_pid"])
+        client = RpcClient(pc.cluster.agent_address(nid))
+        try:
+            reply = client.call("ChaosKillZygote", timeout=10.0)
+        finally:
+            client.close()
+        assert reply["killed"] and reply["pid"] == pool["zygote_pid"]
+
+        @ray_tpu_torch.remote
+        class Echo:
+            def ping(self, v):
+                return v
+
+        # the dead zygote's workers end within their 1 s parent watch;
+        # then an actor pins a new worker: the fork finds the zygote dead
+        # and the agent replaces it
+        time.sleep(2.0)
+        a = Echo.options(num_cpus=0.1, max_restarts=2).remote()
+        assert ray_tpu_torch.get(a.ping.remote(5), timeout=120) == 5
+        deadline = time.monotonic() + 60
+        while True:
+            (_, after), = _pool_stats(pc.cluster).items()
+            if after["zygote_alive"] and after["zygote_pid"] != pool["zygote_pid"]:
+                break
+            assert time.monotonic() < deadline, after
+            b = Echo.options(num_cpus=0.1, max_restarts=2).remote()
+            assert ray_tpu_torch.get(b.ping.remote(6), timeout=120) == 6
+        assert "ray_tpu_torch.cluster.zygote" in _cmdline(after["zygote_pid"])
+        assert after["forked"] > pool["forked"], after
+        ray_tpu_torch.kill(a)
+    finally:
+        pc.shutdown()
