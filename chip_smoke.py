@@ -123,7 +123,18 @@ passes or exits non-zero:
    router kill (seed 7); both runs ``ok``, every stream token-exact, the
    replica set backfilled to 2 with each backfilled replica launching the
    paged kernel, the killed router's streams resumed ``ok``, no arena
-   zombie (its launches are the kernel line's ``chaos_launches``);
+   zombie (its launches are the kernel line's ``chaos_launches``). Then, on
+   a cluster of its own, ``phase_mixed_fleet``: bench.py's
+   ``elasticity_bench`` part (a) (two agents of 4 CPUs × 4 workers, the
+   elasticity controller on, tick 0.5 s; 2 continuous replicas of
+   ``ModelConfig()`` f32 under its hot/cold prompts at QPS 1.5, 10, 1.5
+   for 8, 10 and 8 s beside an elastic gang of its numpy step, SPREAD,
+   1-2 ranks): the gang at world 2 in both troughs and ceding at the peak
+   when and only when a tick hinted fewer ranks, only cede and grow
+   reshapes, no disk restore, no errored request, paged launches in each
+   replica (``mixed_fleet_launches``), every controller solve and head
+   round replayed equal on the CPU; retention, serve p99 and the
+   reshapes printed;
 5e. online RL (``ray_tpu_torch/rl/``; ``phase_rl``): bench.py's
    ``rl_loop_bench`` traffic (2 rollout workers x 2 prompts a step, 6 prompt
    and 6 new tokens, batch 4, 8 steps, seed 3, a publish every 2 steps) on
@@ -139,7 +150,17 @@ passes or exits non-zero:
    kernel at the rollout engine's (max_batch 2, 8-token pages) against
    their plain versions; then an f32
    loop of 2 steps on the card against the CPU's plain path, every
-   trajectory token-equal and the losses within 1e-4;
+   trajectory token-equal and the losses within 1e-4. Then
+   ``phase_rl_soak``: ``tests/test_rl_loop.py``'s triple chaos soak on the
+   card (a WAL head with an auto-promoting standby, 2 continuous replicas
+   of ``ModelConfig()`` f32 as rollout workers, an elastic trainer gang of
+   ``elastic_rl_step`` on the card, a shadow trainer publishing through the
+   weights-epoch fence; seed 14: two rollout kills, a trainer-rank node
+   kill, a head kill inside a seal → commit window): every fault fired and
+   ``ok``, every stream token-exact against an engine on the card, no
+   trajectory unaccounted, the gang's losses within 1e-3 of the shadow's,
+   3 or more epochs, every head and ring round replayed equal on the CPU
+   (launches: ``rl_soak_launches``);
 5f. rllib (``ray_tpu_torch/rllib/``; ``phase_rllib``): PPO, DQN and IMPALA
    at ``tests/test_rllib.py``'s configurations on the local runtime, each
    learner on the card and its runners on the CPU: the learner's tensors on
@@ -257,6 +278,15 @@ passes or exits non-zero:
    ring round of the phase replays equal on the CPU; seed, fault counts,
    acked, reconstructed, owners killed, recovery p50/p95, breaker opens and
    wall printed;
+12b. runs ``tests/test_head_failover.py``'s soak (``phase_failover_soak``,
+   in a second child process, ``--failover``, from after
+   ``phase_elastic_train`` to before ``phase_serving``): a WAL head on the
+   card with an auto-promoting standby, two 2-CPU agents, ``ChaosWorkload``
+   and seed 20260805's 8 faults (3 leader kills with promotion, 2
+   partitions, 3 object drops): the run ``ok``, the schedule equal to the
+   plan, every acked object read back, every promoted head's state on the
+   card, every killed leader's released and one state resident at the end,
+   every head and ring round replayed equal on the CPU;
 13. serves the head's dashboard (first, while nvcc builds the kernels of
    phase 1, since it needs none of them) (``dashboard_port=0``, the standard
    library's ``ThreadingHTTPServer``) over two agents, tasks, two actors
@@ -2725,6 +2755,264 @@ def phase_serving(device: str = "cuda", model=None) -> tuple:
         close_cluster(*cluster)
 
 
+# bench.py elasticity_bench part (a)'s walk: (label, QPS, seconds)
+MIXED_WALK = (("trough A", 1.5, 8.0), ("peak", 10.0, 10.0), ("trough B", 1.5, 8.0))
+MIXED_ENV = {"RAY_TPU_ELASTIC_CONTROLLER": "1", "RAY_TPU_ELASTIC_TICK_S": "0.5",
+             "RAY_TPU_ELASTIC_RETIRE_MAX": "0", "RAY_TPU_ELASTIC_PROVISION_MAX": "0",
+             "RAY_TPU_HEALTH_TIMEOUT_S": "2.0"}
+
+
+def mixed_fleet_verdicts(timeline, reshapes, disk_restores: int, errored: int,
+                         launches: list) -> list:
+    """What the mixed fleet must show, as a list of failures. ``timeline``
+    holds (walk label, gang world, the controller's world hint, parked serve
+    requests) samples; as in bench.py a trough's world is the largest of its
+    last 4 samples. The gang holds world 2 in both troughs; at the peak it
+    cedes when, and only when, a tick hinted fewer ranks (bench.py: "any
+    cede the controller orders shows up as a dip"); every reshape is a cede
+    or a grow; no disk restore, no errored request, paged launches in each
+    replica."""
+    out = []
+    by = {}
+    for label, world, hint, _ in timeline:
+        by.setdefault(label, []).append((world, hint))
+    for label in ("trough A", "trough B"):
+        worlds = [w for w, _ in by.get(label, [])][-4:]
+        if max(worlds, default=0) != 2:
+            out.append(f"{label}: the gang's world {worlds}, not 2")
+    peak = by.get("peak", [])
+    if not peak:
+        out.append("no sample at the peak")
+    else:
+        hints = [h for _, h in peak if h is not None]
+        ceded = min(w for w, _ in peak) < 2
+        ordered = bool(hints) and min(hints) < 2
+        if ordered and not ceded:
+            out.append(f"the controller hinted {min(hints)} at the peak and the gang held 2")
+        if ceded and not ordered:
+            out.append(f"the gang left world 2 at the peak with no hint below 2 ({hints})")
+    odd = [r for r in reshapes if r[0] not in ("cede", "grow")]
+    if odd:
+        out.append(f"reshapes other than cede and grow: {odd}")
+    if disk_restores:
+        out.append(f"{disk_restores} disk restores")
+    if errored:
+        out.append(f"{errored} errored requests")
+    if len(launches) != 2 or not all(n > 0 for n in launches):
+        out.append(f"paged launches per replica {launches}")
+    return out
+
+
+def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
+                      walk=MIXED_WALK) -> int:
+    """bench.py's ``elasticity_bench`` part (a) with the head's rounds and
+    the elasticity controller's solves on ``device``: two agents of 4 CPUs
+    and 4 workers (sharing the card), the controller on (tick 0.5 s, retire
+    and provision max 0, health timeout 2 s), ``build_llm_deployment`` of 2
+    continuous replicas (max_batch 4, 8-token pages, 128 pages) of
+    ``ModelConfig()`` f32 (bench.py's d_model 48 widened), bench.py's
+    hot/cold prompts (seed 11, 80% hot, ``max_new`` tokens) at QPS 1.5 for
+    8 s, 10 for 10 s, 1.5 for 8 s, beside an elastic gang of bench.py's
+    numpy step (dim 2048, work 32, 4 virtual shards, SPREAD, min 1, max 2,
+    grow) stopped 20 steps after the walk (of its 800). ``mixed_fleet_verdicts``
+    must hold; every head and ring round and every controller solve replays
+    equal on the CPU; no ERROR record. Returns the replicas' paged launches."""
+    import random
+    import tempfile
+    import threading
+
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.scheduler import binpack as B
+    from ray_tpu_torch.serve.admission import Overloaded
+    from ray_tpu_torch.serve.router import SERVE_E2E_MS
+    from ray_tpu_torch.train import ElasticConfig, ElasticTrainer
+
+    _platform_env(device)
+    os.environ.update(MIXED_ENV)
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    t0 = time.perf_counter()
+    name = "mix-llm"
+    errors = _RuntimeErrors()
+    records, impl, restore = _record_rounds()
+    ring_records, ring_impl, ring_restore = _record_ring_rounds()
+    solve_impl, solves = B.solve_pack_counts, []
+
+    def _solve(nodes_avail, shapes, counts, **kw):
+        res = solve_impl(nodes_avail, shapes, counts, **kw)
+        solves.append(((np.array(nodes_avail), np.array(shapes), np.array(counts)), dict(kw),
+                       res.per_node.device.type, [x.cpu() for x in res]))
+        return res
+
+    B.solve_pack_counts = _solve
+    stop_dir = tempfile.mkdtemp(prefix="chip_smoke_mixed_")
+    stop_file = os.path.join(stop_dir, "stop_at")
+
+    # bench.py's _elastic_bench_init/_elastic_bench_step, closures so the
+    # ranks get them by value; the step also reads the step to stop at
+    def mix_init(config):
+        d = int(config["dim"])
+        return {"w": np.zeros(d), "opt": {"m": np.zeros(d)}}
+
+    def mix_step(state, step, gang, config):
+        d, work = int(config["dim"]), int(config["work"])
+        partials = {v: {"g": np.full((work, d), float((v + step) % 7)).sum(axis=0)}
+                    for v in gang.owned_shards()}
+        g = gang.allreduce_shards(partials)
+        time.sleep(float(config.get("step_sleep", 0.0)))
+        try:
+            with open(config["stop_file"]) as f:
+                stop = step >= int(f.read())
+        except (OSError, ValueError):
+            stop = False
+        return ({"w": state["w"] + g["g"], "opt": {"m": state["opt"]["m"] + 1.0}},
+                {"step": step, "world": gang.world, "wall": time.time(), "stop": stop})
+
+    c = _cluster(device)
+    gpu = {"GPU": 1.0} if device == "cuda" else {}
+    timeline, results, walls = [], [], {}
+    stop_evt = threading.Event()
+    try:
+        add_nodes(c, *[({"CPU": 4.0, **gpu}, dict(num_workers=4))] * 2)
+        client = c.client()
+        set_runtime(client)
+        try:
+            cfg32, p32 = serve_model(torch.float32, model)
+            serve.run(serve_app(cfg32, p32, name, device, num_replicas=2, **SERVE_ENGINE))
+            router = serve.get_router(name)
+            rng = random.Random(11)
+
+            def one_request(idx):
+                prompt = (rng.choice(SERVE_HOT) if rng.random() < 0.8
+                          else f"cold prompt number {idx} with some extra words")
+                try:
+                    got = run_stream(router, {"prompt": prompt, "max_new_tokens": max_new})
+                except Exception:  # noqa: BLE001 - counted as errored, as bench.py does
+                    return -1
+                return None if got is None else len(got)
+
+            warm = [threading.Thread(target=one_request, args=(i,)) for i in range(4)]
+            for th in warm:
+                th.start()
+            for th in warm:
+                th.join(timeout=300)
+            trainer = ElasticTrainer(
+                mix_init, mix_step, total_steps=800,
+                train_loop_config={"dim": 2048, "work": 32, "step_sleep": 0.04,
+                                   "stop_file": stop_file},
+                elastic_config=ElasticConfig(
+                    min_workers=1, max_workers=2, virtual_shards=4, seal_interval_steps=2,
+                    grow=True, placement_strategy="SPREAD",
+                    resources_per_worker={"CPU": 1.0}))
+            box = {}
+
+            def fit():
+                try:
+                    box["res"] = trainer.fit()
+                except BaseException as exc:  # noqa: BLE001 - reported below
+                    box["exc"] = exc
+
+            fit_th = threading.Thread(target=fit, name="mixed-fit")
+            fit_th.start()
+            deadline = time.monotonic() + 120
+            while (trainer.progress()["step"] < 5 and time.monotonic() < deadline
+                   and fit_th.is_alive()):
+                time.sleep(0.1)
+            check("exc" not in box and fit_th.is_alive(),
+                  f"mixed fleet: the gang did not start: {box.get('exc')!r}")
+            label = [walk[0][0]]
+
+            def sample():
+                while not stop_evt.is_set():
+                    with c.head._lock:
+                        g = dict(c.head._gangs.get(trainer.gang_id) or {})
+                        waiting = sum(int(t.get("waiting") or 0)
+                                      for reps in c.head._serve_budget.values()
+                                      for rep in reps.values()
+                                      for t in (rep.get("pressure") or {}).values())
+                    if g:
+                        timeline.append((label[0], len(g.get("members") or {}),
+                                         g.get("world_hint"), waiting))
+                    stop_evt.wait(0.5)
+
+            threading.Thread(target=sample, daemon=True, name="mixed-sample").start()
+            lbl = {"deployment": name}
+            e2e0 = SERVE_E2E_MS.buckets_snapshot(lbl)
+            for label[0], qps, seconds in walk:
+                s0, w0 = trainer.progress()["step"], time.monotonic()
+                got, _ = open_loop(one_request, qps, seconds)
+                results += got
+                walls[label[0]] = (trainer.progress()["step"] - s0) / (time.monotonic() - w0)
+            p99 = window_pct(SERVE_E2E_MS, lbl, e2e0, 0.99)
+            stop_evt.set()
+            with open(stop_file, "w") as f:
+                f.write(str(trainer.progress()["step"] + 20))
+            fit_th.join(timeout=300)
+            check(not fit_th.is_alive(), "mixed fleet: fit() did not finish")
+            check("exc" not in box, f"mixed fleet: fit raised {box.get('exc')!r}")
+            res = box["res"]
+            check(res.error is None, f"mixed fleet: {res.error!r}")
+            launches = replica_launches(rtt, name)
+        finally:
+            stop_evt.set()
+            try:
+                serve.shutdown()
+            finally:
+                set_runtime(None)
+                client.shutdown()
+    finally:
+        c.shutdown()
+        B.solve_pack_counts = solve_impl
+        restore()
+        ring_restore()
+        errors.close()
+        shutil.rmtree(stop_dir, ignore_errors=True)
+        for k in (*MIXED_ENV, "NVIDIA_TF32_OVERRIDE"):
+            os.environ.pop(k, None)
+    el = res.metrics["elastic"]
+    reshapes = [(r["direction"], r["from_world"], r["to_world"]) for r in el["reshapes"]]
+    errored = sum(isinstance(r, Exception) or r == -1 for r in results)
+    completed = sum(r == max_new for r in results)
+    rate_a, rate_b = walls[walk[0][0]], walls[walk[-1][0]]
+    peak = [(w, h, n) for lab, w, h, n in timeline if lab == walk[1][0]]
+    print(f"mixed fleet ModelConfig() f32 x 2 replicas + elastic gang, controller on "
+          f"[{card_line()}]: {len(results)} requests, {completed} completed, {errored} "
+          f"errored, {sum(r is None for r in results)} shed; serve e2e p99 {p99:.1f} ms; gang "
+          f"step rate trough A {rate_a:.2f}/s, trough B {rate_b:.2f}/s, "
+          f"mixed_fleet_retention_pct {100.0 * rate_b / rate_a if rate_a else 0.0:.1f}; "
+          f"worlds (trough A, peak min, trough B) "
+          f"({max([w for lab, w, _, _ in timeline if lab == walk[0][0]][-4:], default=0)}, "
+          f"{min([w for w, _, _ in peak], default=0)}, "
+          f"{max([w for lab, w, _, _ in timeline if lab == walk[-1][0]][-4:], default=0)}); "
+          f"peak hints {sorted({h for _, h, _ in peak}, key=str)}, parked serve requests at the "
+          f"peak max {max([n for _, _, n in peak], default=0)}; reshapes {reshapes}, disk "
+          f"restores {el['disk_restores']}, {len(res.metrics_history)} steps (of 800); paged "
+          f"launches per replica {launches}")
+    failures = mixed_fleet_verdicts(timeline, reshapes, el["disk_restores"], errored, launches)
+    check(not failures, f"mixed fleet: {failures}")
+    check(len(res.metrics_history) < 800, "mixed fleet: the gang's 800 steps ended before the walk")
+    errors.check("mixed fleet")
+    check(len(solves) >= 10 and all(x[2] == device for x in solves),
+          f"mixed fleet: {len(solves)} controller solves, on {sorted({x[2] for x in solves})}")
+    cpu = {}
+    for i, ((avail, shapes, counts), kw, _, outs) in enumerate(solves):
+        key = (avail.tobytes(), shapes.tobytes(), counts.tobytes(), repr(sorted(kw.items())))
+        if key not in cpu:
+            cpu[key] = solve_impl(avail, shapes, counts, **{**kw, "device": "cpu"})
+        r = cpu[key]
+        err = float((r.avail_out - outs[2]).abs().max()) if r.avail_out.numel() else 0.0
+        check(torch.equal(r.per_node, outs[1]) and torch.equal(r.placed, outs[0])
+              and err <= SCHED_EPS,
+              f"mixed fleet: controller solve {i} of {len(solves)} plans differently on the CPU")
+    _replay_rounds("mixed fleet", records, impl, ring_records, ring_impl)
+    print(f"mixed fleet replay: {len(solves)} controller solves ({len(cpu)} distinct inputs), "
+          f"{len(records)} head rounds and {len(ring_records)} ring rounds replayed on the CPU, "
+          f"every plan and output equal")
+    print(f"mixed fleet phase: {time.perf_counter() - t0:.1f} s")
+    return sum(launches)
+
+
 # ---------------------------------------------------------------------------
 # 5e. online RL: bench.py's rl_loop_bench at ModelConfig()'s width
 # ---------------------------------------------------------------------------
@@ -2897,6 +3185,304 @@ def phase_rl(device: str = "cuda", model=None) -> dict:
 # ---------------------------------------------------------------------------
 # 5f. rllib: PPO, DQN and IMPALA with their learners on the card
 # ---------------------------------------------------------------------------
+RL_SOAK_SEED = 14  # tests/test_rl_loop.py's soak seed: all three planes in 4 faults
+
+
+def rl_soak_verdicts(res, verify_failures: list, acct: dict, gang_losses: dict,
+                     shadow_losses: dict, epoch: int, hist: list, launches: dict,
+                     device: str) -> list:
+    """What the RL triple soak must show, as a list of failures: the
+    reference test's checks (every fault ``ok`` and fired, all three planes,
+    no verify failure, no trajectory unaccounted and some emitted, the
+    gang's losses within 1e-3 of the shadow's on at least 5 shared steps,
+    3 or more epochs published), every step trained on ``device``, and the
+    paged kernel launched in the replicas and the flash kernels in the
+    gang."""
+    out = []
+    if not res.ok:
+        out.append(f"invariants failed: {res.summary()['failures']}")
+    skipped = [(f.spec.kind, f.detail) for f in res.faults if f.detail.startswith("skipped")]
+    if skipped:
+        out.append(f"faults skipped: {skipped}")
+    kinds = {f.spec.kind for f in res.faults}
+    if kinds != {"rollout_kill", "trainer_rank_kill", "head_kill_mid_publish"}:
+        out.append(f"fault kinds {sorted(kinds)}")
+    if verify_failures:
+        out.append(f"{len(verify_failures)} verify failures: {verify_failures[:2]}")
+    if acct.get("unaccounted", -1) != 0 or acct.get("emitted", 0) <= 0:
+        out.append(f"trajectory accounting {acct}")
+    shared = sorted(set(gang_losses) & set(shadow_losses))
+    off = [(s, gang_losses[s], shadow_losses[s]) for s in shared
+           if not abs(gang_losses[s] - shadow_losses[s]) < 1e-3]
+    if off or len(shared) < 5:
+        out.append(f"{len(shared)} steps shared with the shadow, off by more than 1e-3: "
+                   f"{off[:3]}")
+    if epoch < 3:
+        out.append(f"{epoch} epochs published")
+    places = sorted({m.get("device", "?").split(":")[0] for m in hist})
+    if places != [device]:
+        out.append(f"the gang trained on {places}")
+    if not all(launches.get(k, 0) > 0 for k in ("paged", "fwd", "dq", "dkv")):
+        out.append(f"launches {launches}")
+    return out
+
+
+def phase_rl_soak(device: str = "cuda", model=None, max_new: int = 8) -> dict:
+    """``tests/test_rl_loop.py``'s triple chaos soak with the head's rounds
+    on ``device``: a WAL head with an auto-promoting standby, two agents of
+    8 CPUs and 3 workers sharing the card and a feed node, the
+    ``TrajectoryFeed`` actor, ``build_llm_deployment`` of 2 continuous
+    replicas (max_batch 2, 8-token pages, 64 pages) of ``ModelConfig()`` f32
+    (the reference's ``_small_cfg(vocab_size=258)`` widened) on the card,
+    ``RLRolloutWorkload`` streams of the reference's prompt (8 greedy tokens)
+    held token for token against an engine on the card, an elastic trainer
+    gang of ``elastic_rl_step`` (2 STRICT_SPREAD ranks on the card, 4
+    virtual shards, a seal every 2 steps, lr 0.01) paced at 0.2 s a step, a
+    shadow trainer replaying the feed's step batches on the card and
+    publishing through the two-phase fence, then ``make_plan(14, 4, RL_MIX,
+    allow=(rollout_kill, trainer_rank_kill, head_kill_mid_publish))`` under
+    ``ChaosOrchestrator`` (budget 180 s). ``rl_soak_verdicts`` must hold,
+    every head and ring round replays equal on the CPU, no ERROR record.
+    Returns the launches: paged in the replicas alive at the end, the flash
+    kernels in the gang's reporting rank."""
+    import tempfile
+    import threading
+
+    import ray_tpu_torch as rtt
+    import ray_tpu_torch.serve as serve
+    from ray_tpu_torch.chaos import (
+        RL_MIX,
+        ChaosOrchestrator,
+        ChaosWorkload,
+        RLRolloutWorkload,
+        make_plan,
+    )
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.rl import (
+        TrajectoryFeed,
+        WeightsPublisher,
+        elastic_rl_init,
+        elastic_rl_step,
+        model_config_to_dict,
+    )
+    from ray_tpu_torch.rl.loop import sgd_step
+    from ray_tpu_torch.train import ElasticConfig, ElasticTrainer
+    from ray_tpu_torch.train import pytree
+
+    _platform_env(device)
+    env = {"RAY_TPU_HEAD_HEALTH_TIMEOUT_S": "1.5", "NVIDIA_TF32_OVERRIDE": "0"}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    name, prompt = "rl-policy", "rl rollout"
+    errors = _RuntimeErrors()
+    records, impl, restore = _record_rounds()
+    ring_records, ring_impl, ring_restore = _record_ring_rounds()
+    mcfg, base = serve_model(torch.float32, model)
+    dev = torch.device(device)
+    gen_cfg = GenerationConfig(max_new_tokens=max_new, temperature=0.0, seed=0)
+    ref_engine = ContinuousBatchingEngine(mcfg, pytree.tree_map(lambda t: t.to(dev), base),
+                                          max_batch=2, page_size=8, n_pages=64, device=dev,
+                                          tokenizer=id_tokenizer())
+
+    def expected_tokens():
+        return [ref_engine.tokenizer.decode([int(t)])
+                for t in ref_engine.stream_ids(ref_engine.tokenizer.encode(prompt), gen_cfg)]
+
+    expected_base = expected_tokens()
+    check(len(expected_base) == max_new, f"rl soak: the reference engine gave {expected_base}")
+    gpu = {"GPU": 1.0} if device == "cuda" else {}
+    node = {"CPU": 8.0, **gpu}
+    tmp = tempfile.mkdtemp(prefix="ray_tpu_torch_rl_soak_")
+    c = _cluster(device, persist_path=os.path.join(tmp, "head_state.pkl"))
+    heads = _watch_heads(c)
+    stop_evt = threading.Event()
+    workload = pump = None
+    shadow_losses, pump_errors, pump_s = {}, [], []
+    spans, untrace = _trace_checks()
+    # every node, the orchestrator's replacements too, gets the elastic
+    # phase's 8 GiB arena: a rank seals the whole f32 model (~200 MB) every
+    # 2 steps, and its buddy pulls the other rank's
+    add_node = c.add_node
+    c.add_node = lambda *a, **kw: add_node(*a, **{"store_capacity": 8 << 30, **kw})
+    try:
+        # the feed actor on a node of its own, so a trainer-rank node's
+        # kill never takes the accounting ledger down with it
+        add_nodes(c, (node, dict(num_workers=3)), (node, dict(num_workers=3)),
+                  ({"CPU": 0.5, "FEED": 1.0}, dict(num_workers=1, store_capacity=1 << 28)))
+        client = c.client()
+        set_runtime(client)
+        c.start_standby(auto_promote=True)
+        try:
+            feed = rtt.remote(TrajectoryFeed).options(
+                name="rl-feed", num_cpus=0.25, resources={"FEED": 1.0}).remote(2)
+            rtt.get(feed.latest_epoch.remote(), timeout=60.0)
+            serve.run(serve_app(mcfg, base, name, device, num_replicas=2, engine="continuous",
+                                max_batch=2, page_size=8, n_pages=64))
+            router = serve.get_router(name)
+            check(router.resumable, "rl soak: the deployment's router is not resumable")
+            publisher = WeightsPublisher(name, head_address=c.address)
+            workload = RLRolloutWorkload(router, {"prompt": prompt, "max_new_tokens": max_new},
+                                         {"base": expected_base}, publisher=publisher, feed=feed,
+                                         concurrency=2, token_space=mcfg.vocab_size)
+            workload.start()
+            _wait_until(lambda: workload.completed >= 2 or workload.verify_failures, 240.0,
+                        "rl soak: warm rollout streams")
+            check(not workload.verify_failures, f"rl soak: {workload.verify_failures[:1]}")
+            # paced through the faults (the trainer outlives them), then sprinted
+            rtt.get(feed.set_pace.remote(0.2), timeout=30.0)
+            trainer = ElasticTrainer(
+                elastic_rl_init, elastic_rl_step, total_steps=2500,
+                train_loop_config={"model": model_config_to_dict(mcfg), "seed": 0,
+                                   "batch_size": 4, "lr": 0.01, "feed_actor": "rl-feed",
+                                   "device": device},
+                elastic_config=ElasticConfig(
+                    min_workers=1, max_workers=2, virtual_shards=4, seal_interval_steps=2,
+                    grow=True, placement_strategy="STRICT_SPREAD",
+                    resources_per_worker={"CPU": 1.0, **({"GPU": 0.25} if gpu else {})}))
+            workload.trainer = trainer
+            box = {}
+
+            def fit():
+                try:
+                    box["res"] = trainer.fit()
+                except BaseException as exc:  # noqa: BLE001 - reported below
+                    box["exc"] = exc
+
+            fit_th = threading.Thread(target=fit, daemon=True, name="rl-soak-fit")
+            fit_th.start()
+            _wait_until(lambda: trainer.progress()["step"] >= 2 or "exc" in box, 240.0,
+                        "rl soak: the trainer's first steps")
+            check("exc" not in box, f"rl soak: fit raised {box.get('exc')!r}")
+            # the shadow replays the feed's step batches (what the gang trained)
+            # and publishes under the fence, hot-swapping every replica
+            shadow = {"params": pytree.tree_map(lambda t: t.to(dev), base), "step": 0}
+
+            def _pump():
+                while not stop_evt.is_set():
+                    marks = [time.perf_counter()]
+                    try:
+                        target = trainer.progress()["step"]
+                        while shadow["step"] < target and not stop_evt.is_set():
+                            s = shadow["step"]
+                            block = rtt.get(feed.take_for_step.remote(s, 4), timeout=60.0)
+                            if block is not None:
+                                tokens = torch.from_numpy(np.asarray(block["tokens"])).to(
+                                    device=dev, dtype=torch.int64)
+                                loss, shadow["params"] = sgd_step(shadow["params"], tokens,
+                                                                  mcfg, 0.01)
+                                shadow_losses[s] = float(loss)
+                            shadow["step"] = s + 1
+                        marks.append(time.perf_counter())
+                        epoch = publisher.publish(shadow["params"])
+                        rtt.get(feed.note_epoch.remote(epoch), timeout=30.0)
+                        marks.append(time.perf_counter())
+                        model_id = f"epoch-{epoch}"
+                        ref_engine.swap_params(shadow["params"], model_id=model_id)
+                        expected = expected_tokens()
+                        marks.append(time.perf_counter())
+                        workload.broadcast_weights(shadow["params"], model_id, epoch)
+                        workload.register_model(model_id, expected)
+                        marks.append(time.perf_counter())
+                        pump_s.append([b - a for a, b in zip(marks, marks[1:])])
+                    except Exception as exc:  # noqa: BLE001 - the head mid-failover
+                        pump_errors.append(repr(exc))
+                    stop_evt.wait(1.0)
+
+            pump = threading.Thread(target=_pump, daemon=True, name="rl-soak-pump")
+            pump.start()
+            _wait_until(lambda: workload.published_epoch() >= 1, 120.0,
+                        f"rl soak: the first publish (pump errors {pump_errors[-3:]})")
+            plan = make_plan(seed=RL_SOAK_SEED, num_faults=4, mix=RL_MIX,
+                             allow=("rollout_kill", "trainer_rank_kill",
+                                    "head_kill_mid_publish"),
+                             min_delay_s=0.5, max_delay_s=1.5)
+            chaos_wl = ChaosWorkload(client, payload_bytes=150_000, num_actors=1)
+            orch = ChaosOrchestrator(c, chaos_wl, plan, node_resources=node,
+                                     workers_per_node=3, convergence_budget_s=180.0,
+                                     serve_adapter=workload, rl_adapter=workload)
+            t1 = time.perf_counter()
+            res = orch.run()
+            wall = time.perf_counter() - t1
+            stop_evt.set()
+            workload.stop()
+            rtt.get(feed.set_pace.remote(0.0), timeout=30.0)
+            rtt.get(feed.request_stop.remote(), timeout=30.0)
+            fit_th.join(timeout=420)
+            check(not fit_th.is_alive(), f"rl soak: the trainer did not finish "
+                                         f"{trainer.progress()}")
+            check("exc" not in box, f"rl soak: fit raised {box.get('exc')!r}")
+            check(box["res"].error is None, f"rl soak: {box['res'].error!r}")
+            hist = box["res"].metrics_history
+            acct = workload.trajectory_accounting()
+            epoch = workload.published_epoch()
+            replicas = replica_launches(rtt, name)
+            gates = [(st["model_id"], st["weight_swaps"], st["swap_gate_wait_ms_max"],
+                      st["swap_gate_deadline_misses"]) for st in replica_stats(rtt, name)]
+            verify_failures = list(workload.verify_failures)
+            if not res.ok:  # what each head held of the workload's named actor
+                aid = chaos_wl.actor_ids[0]
+                for i, h in enumerate(heads):
+                    info = h._actors.get(aid)
+                    print(f"rl soak head {i}: named {dict(h._named_actors)}; actor {aid[:8]} "
+                          + (f"{info.state} on {info.node_id}, restarts {info.num_restarts}"
+                             if info is not None else "unknown"))
+        finally:
+            stop_evt.set()
+            if pump is not None:
+                pump.join(timeout=30)
+            if workload is not None:
+                workload.stop()
+            try:
+                serve.shutdown()
+            finally:
+                set_runtime(None)
+                client.shutdown()
+    finally:
+        c.shutdown()
+        restore()
+        ring_restore()
+        untrace()
+        errors.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k in env:
+            os.environ.pop(k, None)
+    _print_check_spans("rl soak", spans, res)
+    if pump_s:
+        cols = list(zip(*pump_s))
+        print(f"rl soak pump: {len(pump_s)} publishes; seconds (mean/max) "
+              + ", ".join(f"{n} {np.mean(c):.3f}/{max(c):.3f}" for n, c in zip(
+                  ("replay", "publish", "reference", "broadcast"), cols)))
+    gang_losses = {m["step"]: m["loss"] for m in hist if m.get("loss") == m.get("loss")}
+    launches = dict(paged=sum(replicas),
+                    **{k: sum(m.get("launches", {}).get(k, 0) for m in hist)
+                       for k in ("fwd", "dq", "dkv")})
+    lat = res.recovery_percentiles()
+    for f in res.faults:
+        print(f"rl soak #{f.spec.index} {f.spec.kind}: {f.recovery_s:.3f} s, {f.detail}"
+              + (f"; FAILED {f.failures}" if not f.ok else ""))
+    shared = sorted(set(gang_losses) & set(shadow_losses))
+    print(f"rl soak seed {plan.seed} {res.summary()['fault_counts']}, ModelConfig() f32 (TF32 "
+          f"off) [{card_line()}]: ok {res.ok}, recovery p50 {lat['p50']:.3f} s p95 "
+          f"{lat['p95']:.3f} s; {workload.completed} streams token-exact, "
+          f"{len(verify_failures)} verify failures; trajectories {acct}; {len(hist)} gang steps, "
+          f"{len(shared)} shared with the shadow, largest loss gap "
+          f"{max([abs(gang_losses[s] - shadow_losses[s]) for s in shared], default=0.0):.3g}; "
+          f"{epoch} epochs published, pump errors {len(pump_errors)}; replicas (model, swaps, "
+          f"longest swap wait ms, swaps past the drain deadline) {gates}; {len(heads)} heads; "
+          f"launches {launches} (paged per replica {replicas}); wall {wall:.1f} s")
+    failures = rl_soak_verdicts(res, verify_failures, acct, gang_losses, shadow_losses, epoch,
+                                hist, launches, device)
+    check(not failures, f"rl soak: {failures}")
+    errors.check("rl soak")
+    check(all(h.device_state.device.type == device for h in heads),
+          f"rl soak: a head's scheduler state is off {device}")
+    _replay_rounds("rl soak", records, impl, ring_records, ring_impl)
+    print(f"rl soak replay: {len(records)} head rounds and {len(ring_records)} ring rounds of the "
+          f"{len(heads)} heads replayed on the CPU, every output equal")
+    print(f"rl soak phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 class _SgdClock:
     """Counts and times (synced) a learner's update calls."""
 
@@ -4447,6 +5033,20 @@ def _record_ring_rounds():
     return records, impl, restore
 
 
+def _replay_rounds(label: str, records, impl, ring_records, ring_impl) -> None:
+    """Every head round and ring round recorded by ``_record_rounds`` and
+    ``_record_ring_rounds`` runs again on the CPU with equal outputs."""
+    check(len(records) + len(ring_records) > 0, f"{label}: no head round was recorded")
+    for i, (args, kw, node, avail_out) in enumerate(records):
+        res = impl(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args], **kw)
+        check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
+              f"{label}: head round {i} of {len(records)} replays differently on the CPU")
+    for i, (args, kw, outs, _, _) in enumerate(ring_records):
+        res = ring_impl(*args, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(res, outs)),
+              f"{label}: ring round {i} of {len(ring_records)} replays differently on the CPU")
+
+
 def _vec(n, seed):
     return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
 
@@ -5319,17 +5919,9 @@ def phase_chaos(device: str = "cuda", num_faults: int = CHAOS_FAULTS):
           f"{seen['mem']} -> {mem} bytes; {opens} breaker opens; head sched_rounds since the "
           f"restart {head_rounds}")
     # every recorded round replays equal on the CPU
-    check(len(records) + len(ring_records) > 0, "chaos: no head round was recorded")
     check(len(records) - seen["rounds"] + len(ring_records) - seen["ring"] > 0,
           "chaos: no head round was recorded after the restart")
-    for i, (args, kw, node, avail_out) in enumerate(records):
-        res = impl(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args], **kw)
-        check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
-              f"chaos: head round {i} of {len(records)} replays differently on the CPU")
-    for i, (args, kw, outs, _, _) in enumerate(ring_records):
-        res = ring_impl(*args, **kw)
-        check(all(torch.equal(a, b) for a, b in zip(res, outs)),
-              f"chaos: ring round {i} of {len(ring_records)} replays differently on the CPU")
+    _replay_rounds("chaos", records, impl, ring_records, ring_impl)
     lat = soak.recovery_percentiles()
     print(f"chaos replay: {len(records)} head rounds ({len(records) - seen['rounds']} after the "
           f"restart) and {len(ring_records)} ring rounds ({len(ring_records) - seen['ring']} "
@@ -5344,6 +5936,146 @@ def phase_chaos(device: str = "cuda", num_faults: int = CHAOS_FAULTS):
           f"{runs[1][1].arena_zombies_after}, chaos_wall_s {sum(w for _, _, w in runs):.1f} "
           f"[{card_line()}]")
     print(f"chaos phase: {time.perf_counter() - t0:.1f} s")
+
+
+FAILOVER_SEED = 20260805  # tests/test_head_failover.py's soak seed: 3 failovers in 8 faults
+FAILOVER_FAULTS = 8
+
+
+def _watch_heads(c) -> list:
+    """The list of every head ``c`` runs, the first and, as each standby
+    promotes, the promoted one."""
+    heads = [c.head]
+    adopt = c._adopt_head
+
+    def _adopt(head):
+        heads.append(head)
+        adopt(head)
+
+    c._adopt_head = _adopt  # start_standby hands this to each standby
+    return heads
+
+
+def failover_verdicts(plan, res, heads, resident: dict, device: str, lost: list) -> list:
+    """What the failover soak must show, as a list of failures: the run
+    ``ok``, at least 2 promotions (each fired, a head each), the injected
+    schedule equal to the plan, no acked object lost, every head's state on
+    ``device``, every killed leader's state released and exactly one state
+    (the last leader's) holding ``device`` memory."""
+    out = []
+    if not res.ok:
+        out.append(f"invariants failed: {res.summary()['failures']}")
+    promotions = sum(f.spec.kind == "head_kill_promote" and not f.detail.startswith("skipped")
+                     for f in res.faults)
+    if promotions < 2 or len(heads) != promotions + 1:
+        out.append(f"{promotions} head_kill_promote faults, {len(heads)} heads")
+    if [(f.spec.index, f.spec.kind) for f in res.faults] != [(f.index, f.kind)
+                                                            for f in plan.faults]:
+        out.append("the injected schedule differs from the plan")
+    if lost:
+        out.append(f"{len(lost)} acked objects lost: {lost[:2]}")
+    off = [h.device_state.device.type for h in heads
+           if h.device_state is None or h.device_state.device.type != device]
+    if off:
+        out.append(f"heads whose scheduler state is not on {device}: {off}")
+    held = [h.device_state.resident_bytes() for h in heads[:-1]]
+    if any(held):
+        out.append(f"killed leaders still hold {held} bytes")
+    if set(resident) != {id(heads[-1].device_state)}:
+        out.append(f"{len(resident)} scheduler states hold {device} memory, not the last "
+                   "leader's alone")
+    return out
+
+
+def phase_failover_soak(device: str = "cuda", num_faults: int = FAILOVER_FAULTS):
+    """``tests/test_head_failover.py``'s slow soak with the head's rounds on
+    ``device``: a ``Cluster`` with a WAL and two agents of 2 CPUs and 2
+    workers, an auto-promoting standby (each promoted head brings its state
+    up on ``device``), ``ChaosWorkload`` (150,000-byte payloads, 1 actor),
+    ``make_plan(20260805, 8, FAILOVER_MIX, allow=(head_kill_promote,
+    partition, object_drop))`` under ``ChaosOrchestrator`` (partition hold
+    1 s, budget 90 s; head health 1.5 s, health 4 s, breaker window 2 s).
+    ``failover_verdicts`` must hold, every acked object reads back, no
+    ERROR record, and every head and ring round of every head replays
+    equal on the CPU."""
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.chaos import FAILOVER_MIX, ChaosOrchestrator, ChaosWorkload, make_plan
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    _platform_env(device)
+    env = {"RAY_TPU_HEAD_HEALTH_TIMEOUT_S": "1.5", "RAY_TPU_HEALTH_TIMEOUT_S": "4.0",
+           "RAY_TPU_RPC_BREAKER_WINDOW_S": "2.0"}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    records, impl, restore = _record_rounds()
+    ring_records, ring_impl, ring_restore = _record_ring_rounds()
+    plan = make_plan(FAILOVER_SEED, num_faults, mix=FAILOVER_MIX,
+                     allow=("head_kill_promote", "partition", "object_drop"))
+    try:
+        with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_failover_") as d:
+            c = _cluster(device, persist_path=os.path.join(d, "head_state.pkl"))
+            heads = _watch_heads(c)
+            try:
+                add_nodes(c, *[({"CPU": 2.0}, dict(num_workers=2))] * 2)
+                client = c.client()
+                set_runtime(client)
+                try:
+                    c.start_standby(auto_promote=True)
+                    workload = ChaosWorkload(client, payload_bytes=150_000, num_actors=1)
+                    orch = ChaosOrchestrator(c, workload, plan, node_resources={"CPU": 2.0},
+                                             partition_hold_s=1.0, convergence_budget_s=90.0)
+                    t1 = time.perf_counter()
+                    res = orch.run()
+                    wall = time.perf_counter() - t1
+                    # every acked object of the soak, not a sample, reads back whole
+                    lost = workload.verify_acked(sample=len(workload.acked), timeout=60.0)
+
+                    # a shape no lease holds: the last leader's rounds place it
+                    def burst(i):
+                        return i * i
+
+                    before = c.head.metrics["sched_rounds"]
+                    f = rtt.remote(num_cpus=0.5)(burst)
+                    got = rtt.get([f.remote(i) for i in range(16)], timeout=120)
+                    check(got == [i * i for i in range(16)]
+                          and c.head.metrics["sched_rounds"] > before,
+                          f"failover soak: the last leader placed no burst ({got[:3]}...)")
+                finally:
+                    set_runtime(None)
+                    client.shutdown()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                resident = _resident_states(device)
+                rounds = [h.metrics["sched_rounds"] for h in heads]
+                failures = failover_verdicts(plan, res, heads, resident, device, lost)
+            finally:
+                c.shutdown()
+    finally:
+        restore()
+        ring_restore()
+        errors.close()
+        for k in env:
+            os.environ.pop(k, None)
+    lat = res.recovery_percentiles()
+    for f in res.faults:
+        print(f"failover #{f.spec.index} {f.spec.kind}: {f.recovery_s:.3f} s, {f.detail}"
+              + (f"; FAILED {f.failures}" if not f.ok else ""))
+    print(f"failover soak seed {plan.seed}, {len(res.faults)} faults "
+          f"{res.summary()['fault_counts']} with the head on {device} [{card_line()}]: ok "
+          f"{res.ok}; objects acked {res.objects_acked} ({len(workload.acked)} read back, "
+          f"{len(lost)} lost), reconstructed {res.objects_reconstructed}; recovery p50 "
+          f"{lat['p50']:.3f} s p95 {lat['p95']:.3f} s; arena zombies {res.arena_zombies_after}; "
+          f"{len(heads)} heads, head rounds {rounds}; {len(resident)} scheduler state holding "
+          f"{device} memory at the end; wall {wall:.1f} s")
+    check(not failures, f"failover soak: {failures}")
+    errors.check("failover soak")
+    _replay_rounds("failover soak", records, impl, ring_records, ring_impl)
+    print(f"failover soak replay: {len(records)} head rounds and {len(ring_records)} ring rounds "
+          f"of the {len(heads)} heads replayed on the CPU, every output equal")
+    print(f"failover soak phase: {time.perf_counter() - t0:.1f} s")
 
 
 # --- the dashboard and the state API, compiled DAGs and pipelines, and ---
@@ -6213,44 +6945,60 @@ def timed(fn, *args, **kwargs):
 
 
 # phases run in a child process beside the others: left out of the total
-BESIDE = ("chaos",)
+BESIDE = ("chaos", "failover")
 
 
-def start_chaos():
-    """``phase_chaos`` in a child process of this script (``--chaos``) with a
+def start_beside(name: str, label: str = "", held: bool = False):
+    """A phase in a child process of this script (``--<name>``) with a
     temp dir of its own (no other cluster's agent sweeps its files); its
-    output goes to a file there, printed by the join this returns."""
+    output goes to a file there, printed by the join this returns, which
+    keeps the wait for it as ``<name>_wait`` and the phase's own seconds
+    (its "<label> phase: N s" line) as ``<name>``. With ``held`` the child
+    starts (its imports) and then waits, idle, until the ``go`` returned
+    beside the join is called."""
     import tempfile
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
-    log = open(os.path.join(tmp, "chaos.log"), "wb")
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    log = open(os.path.join(tmp, f"{name}.log"), "wb")
     here = os.path.dirname(os.path.abspath(__file__))
+    go_file = os.path.join(tmp, "go")
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--chaos"],
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), f"--{name}"]
+                            + ([go_file] if held else []),
                             stdout=log, stderr=subprocess.STDOUT, cwd=here,
                             env={**os.environ, "TMPDIR": tmp})
+
+    def go():
+        open(go_file, "w").close()
 
     def join():
         t1 = time.perf_counter()
         rc = proc.wait(timeout=900)
-        PHASE_S["chaos_wait"] = round(time.perf_counter() - t1, 1)
+        PHASE_S[f"{name}_wait"] = round(time.perf_counter() - t1, 1)
         log.close()
         with open(log.name, "rb") as f:
             text = f.read().decode(errors="replace")
         sys.stdout.write(text)
         sys.stdout.flush()
         # the phase's own seconds, as it printed them
-        m = re.search(r"^chaos phase: ([0-9.]+) s$", text, re.M)
-        PHASE_S["chaos"] = float(m.group(1)) if m else round(time.perf_counter() - t0, 1)
+        m = re.search(rf"^{label or name} phase: ([0-9.]+) s$", text, re.M)
+        PHASE_S[name] = float(m.group(1)) if m else round(time.perf_counter() - t0, 1)
         shutil.rmtree(tmp, ignore_errors=True)
-        check(rc == 0 and m is not None, f"chaos: the phase's process exited with {rc}")
+        check(rc == 0 and m is not None, f"{name}: the phase's process exited with {rc}")
 
-    return join
+    return join, go
 
 
 def main() -> None:
     if sys.argv[1:] == ["--chaos"]:
         phase_chaos()
+        return
+    if sys.argv[1:2] == ["--failover"]:
+        if sys.argv[2:]:  # held: start when the file appears
+            deadline = time.monotonic() + 1200
+            while not os.path.exists(sys.argv[2]) and time.monotonic() < deadline:
+                time.sleep(0.1)
+        phase_failover_soak()
         return
     become_subreaper()
     atexit.register(stop_descendants, 2.0)
@@ -6263,7 +7011,7 @@ def main() -> None:
     paged_row = timed(phase_paged)
     # the chaos soak needs no kernel and mostly waits: it runs beside the
     # model phases, after the kernels' timing phases
-    join_chaos = start_chaos()
+    join_chaos, _ = start_beside("chaos")
     flash_launches = timed(phase_forward)
     paged_launches, tps = timed(phase_serve)
     train_launches, step_ms, train_tps, train_losses = timed(phase_train)
@@ -6272,13 +7020,23 @@ def main() -> None:
     trainer_run = timed(phase_trainer, train_losses)
     # before the elastic gang's node kill and its 2 s health timeout
     join_chaos()
-    lib_launches = [trainer_run, timed(phase_elastic_train), timed(phase_tune)]
+    # the failover soak needs no kernel and mostly waits: its process starts
+    # (its imports) now and idles through the elastic gang's node kill and
+    # 2 s health timeout, then runs beside the phases up to the serving
+    # cluster's
+    join_failover, go_failover = start_beside("failover", "failover soak", held=True)
+    lib_launches = [trainer_run, timed(phase_elastic_train)]
+    go_failover()
+    lib_launches.append(timed(phase_tune))
     trainer_launches = {k: sum(x[k] for x in lib_launches) for k in ("fwd", "dq", "dkv")}
     wide_rows = timed(phase_wide_heads)
     llm = timed(phase_llm_engine)
     disagg = timed(phase_llm_disagg)
+    join_failover()
     serve_launches, chaos_launches = timed(phase_serving)
+    mixed_launches = timed(phase_mixed_fleet)
     rl_launches = timed(phase_rl)
+    rl_soak = timed(phase_rl_soak)
     timed(phase_rllib)
     data_launches = timed(phase_data)
     timed(phase_scheduler)
@@ -6297,29 +7055,33 @@ def main() -> None:
              replaces="ray_tpu/ops/paged_attention.py:102",
              launches=paged_launches, **paged_row, wide_shape=wide_rows["paged"],
              serve_launches=serve_launches, chaos_launches=chaos_launches,
-             rl_launches=rl_launches["paged"]),
+             rl_launches=rl_launches["paged"], mixed_fleet_launches=mixed_launches,
+             rl_soak_launches=rl_soak["paged"]),
         dict(name="flash_attention_fwd", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_fwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:185",
              launches=flash_launches, **flash_row, wide_shape=wide_rows["fwd"],
              mesh_launches=par["fwd"], trainer_launches=trainer_launches["fwd"],
-             rl_launches=rl_launches["fwd"], data_launches=data_launches["fwd"]),
+             rl_launches=rl_launches["fwd"], data_launches=data_launches["fwd"],
+             rl_soak_launches=rl_soak["fwd"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:230",
              launches=train_launches["dq"], **bwd_rows["dq"], wide_shape=wide_rows["dq"],
              mesh_launches=par["dq"], trainer_launches=trainer_launches["dq"],
-             rl_launches=rl_launches["dq"], data_launches=data_launches["dq"]),
+             rl_launches=rl_launches["dq"], data_launches=data_launches["dq"],
+             rl_soak_launches=rl_soak["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:247",
              launches=train_launches["dkv"], **bwd_rows["dkv"], wide_shape=wide_rows["dkv"],
              mesh_launches=par["dkv"], trainer_launches=trainer_launches["dkv"],
-             rl_launches=rl_launches["dkv"], data_launches=data_launches["dkv"]),
+             rl_launches=rl_launches["dkv"], data_launches=data_launches["dkv"],
+             rl_soak_launches=rl_soak["dkv"]),
     ]
     total = sum(v for k, v in PHASE_S.items() if k not in BESIDE)
     print(f"phase seconds: {json.dumps(PHASE_S)}; total {total:.1f} s (without "
-          f"{', '.join(BESIDE)}, run beside the others; chaos_wait is the wait for it)")
+          f"{', '.join(BESIDE)}, run beside the others; each <name>_wait is the wait for it)")
     print(f"decode tokens/s {tps:.1f}; train {step_ms:.2f} ms/step, {train_tps:.1f} tokens/s; "
           f"mesh train {par['step_ms']:.2f} ms/step, {par['tps']:.1f} tokens/s; "
           f"LLMEngine decode {llm['tps']:.1f} tokens/s (MoE {llm['moe_tps']:.1f}); hand-off "

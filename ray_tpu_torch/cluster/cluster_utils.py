@@ -17,7 +17,7 @@ import json
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from .client import RemoteRuntime
 from .head import HeadServer
@@ -117,6 +117,9 @@ class Cluster:
                 client.close()
             except Exception:  # noqa: BLE001
                 pass
+        # a killed process frees its card memory; the corpse stays in
+        # _dead_heads with its host tables for the split-brain probe
+        head.release_device_state()
         self._dead_heads.append(head)
 
     def promote(self, timeout: float = 30.0) -> HeadServer:
@@ -168,14 +171,21 @@ class Cluster:
         )
         self._agents[node_id] = proc
         if wait:
-            self.wait_for_nodes(len(self._agents))
+            self.wait_for_nodes(len(self._agents), node_ids=(node_id,))
         return node_id
 
-    def wait_for_nodes(self, count: int, timeout: float = 60.0) -> None:
+    def wait_for_nodes(self, count: int, timeout: float = 60.0,
+                       node_ids: Sequence[str] = ()) -> None:
+        """Waits until ``count`` nodes are alive at the head, ``node_ids``
+        among them (a node killed but not yet declared dead still counts
+        as alive, so a count alone can be met before a new node registers)."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
-            alive = sum(1 for n in self.head.nodes.values() if n.alive)
-            if alive >= count:
+            nodes = dict(self.head.nodes)
+            alive = sum(1 for n in nodes.values() if n.alive)
+            if alive >= count and all(
+                nid in nodes and nodes[nid].alive for nid in node_ids
+            ):
                 return
             time.sleep(0.05)
         raise TimeoutError(

@@ -26,6 +26,7 @@ failed", and the parked work stays parked.
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import pickle
@@ -73,6 +74,11 @@ from .rpc import RpcClient, RpcError, RpcNotLeaderError, RpcServer
 from .shards import ShardedTable
 
 logger = logging.getLogger("ray_tpu_torch.cluster.head")
+
+# creation payloads at least this large are shared between the actors that
+# carry equal ones (HeadServer._shared_payload)
+_SHARED_PAYLOAD_MIN = 1 << 20
+
 
 def _trace_args(spec) -> dict:
     from ray_tpu_torch.util.tracing import event_args
@@ -385,6 +391,8 @@ class HeadServer:
         self._pending_revokes: Dict[str, dict] = {}
         self._actors: Dict[str, ActorInfo] = {}
         self._actor_specs: Dict[str, LeaseRequest] = {}
+        # digest -> the one bytes object of each large creation payload
+        self._payloads: Dict[bytes, bytes] = {}
         self._named_actors: Dict[str, str] = {}
         self._actor_send: Dict[str, deque] = {}  # per-actor ordered sender
         self._actor_sending: set = set()
@@ -1905,6 +1913,9 @@ class HeadServer:
                 max_retries=0,
                 strategy=spec.strategy,
                 runtime_env=spec.runtime_env,
+                # the new agent reports the name, restart budget, lifetime
+                # and owner back to a head that lost its tables
+                actor_meta=spec.actor_meta,
             )
             with self._cond:
                 self._pending.append(clone)
@@ -4811,6 +4822,22 @@ class HeadServer:
     # ------------------------------------------------------------------
     # actors (GcsActorManager / GcsActorScheduler analog)
     # ------------------------------------------------------------------
+    def _shared_payload(self, payload):
+        """The one bytes object of a large creation payload. The replicas
+        of a deployment carry the same class and arguments (its weights,
+        where a closure holds them: ~170 MB at ``ModelConfig()`` f32), and
+        pickle writes a shared object once, so the snapshots, their
+        barriers to the standbys and the WAL ship batches carry it once
+        instead of once an actor (two replicas' 340 MB outgrew the RPC
+        message limit, and a standby froze). Entries no spec holds go."""
+        if not isinstance(payload, bytes) or len(payload) < _SHARED_PAYLOAD_MIN:
+            return payload
+        key = hashlib.blake2b(payload, digest_size=16).digest()
+        with self._lock:
+            held = {id(s.payload) for s in self._actor_specs.values()}
+            self._payloads = {k: v for k, v in self._payloads.items() if id(v) in held}
+            return self._payloads.setdefault(key, payload)
+
     def _h_create_actor(self, req: dict) -> dict:
         spec: LeaseRequest = req["spec"]
         with self._cond:
@@ -4819,6 +4846,7 @@ class HeadServer:
                 # reply was lost re-sends): creating twice would run ctor
                 # side effects twice and leak a pinned worker
                 return {"actor_id": spec.actor_id}
+        spec.payload = self._shared_payload(spec.payload)
         name = req.get("name")
         info = ActorInfo(
             actor_id=spec.actor_id,
@@ -6418,9 +6446,13 @@ class HeadServer:
             _best_effort(client.close)
         self._dispatch_pool.shutdown(wait=False, cancel_futures=True)
         self._server.stop()
-        # a head restart keeps the process: free the scheduler state's
-        # device memory now that no round runs (the loop has seen
-        # _shutdown), not when the collector reaches the old head's cycles
+        self.release_device_state()
+
+    def release_device_state(self) -> None:
+        """Frees the scheduler state's device memory once the scheduler
+        loop has seen ``_shutdown`` and ended (a head restart or a killed
+        in-process leader keeps the process, and the collector would reach
+        the old head's cycles only later). The host tables stay."""
         sched = getattr(self, "_sched_thread", None)
         if self.device_state is not None and sched is not None:
             if sched.is_alive() and threading.current_thread() is not sched:

@@ -42,6 +42,7 @@ import hashlib
 import os
 import threading
 import time
+from contextlib import contextmanager
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -116,6 +117,67 @@ def _gen_from_request(request) -> GenerationConfig:
         temperature=float(request.get("temperature", 0.0)),
         seed=int(request.get("seed", 0)),
     )
+
+
+class _ModelGate:
+    """Requests hold the replica's weights shared while they run; a swap
+    holds them alone. The engine is stepped by the thread that streams a
+    request, and ``swap_params`` drains the active slots by stepping it
+    from the swapping thread, so a swap beside a running stream would step
+    the engine from two threads at once; and the engine admits a queued
+    request on whatever weights it holds when a slot opens, so a swap that
+    lands between a request's pin check and its admission would run it on
+    another model. A waiting swap keeps new requests out (it goes first)
+    and waits at most ``cfg.serve_swap_drain_deadline_s`` (0: without
+    bound) for those running, the engine's own drain deadline."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._alone = False
+        self._waiting = 0
+        # swaps that waited for running requests: the longest wait, and
+        # how many gave up at the deadline
+        self.wait_ms_max = 0.0
+        self.deadline_misses = 0
+
+    def acquire_shared(self) -> None:
+        with self._cv:
+            while self._alone or self._waiting:
+                self._cv.wait()
+            self._shared += 1
+
+    def release_shared(self) -> None:
+        with self._cv:
+            self._shared -= 1
+            self._cv.notify_all()
+
+    @contextmanager
+    def alone(self):
+        from ..config import cfg
+
+        limit = float(cfg.serve_swap_drain_deadline_s)
+        deadline = time.monotonic() + limit if limit > 0 else None
+        t0 = time.monotonic()
+        with self._cv:
+            self._waiting += 1
+            try:
+                while self._alone or self._shared:
+                    left = None if deadline is None else deadline - time.monotonic()
+                    if left is not None and left <= 0 and not self._alone:
+                        self.deadline_misses += 1
+                        break  # past the deadline: the engine's drain takes over
+                    self._cv.wait(left)
+            finally:
+                self._waiting -= 1
+            self._alone = True
+            self.wait_ms_max = max(self.wait_ms_max, (time.monotonic() - t0) * 1e3)
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._alone = False
+                self._cv.notify_all()
 
 
 def build_llm_deployment(
@@ -228,6 +290,7 @@ def build_llm_deployment(
 
                 self._hub = hub_from_node(name)
             self._swap_lock = threading.Lock()
+            self._gate = _ModelGate()
             self._swap_done_t: Optional[float] = None
             self._swaps = 0
             self._ft_new_count = 0
@@ -240,6 +303,25 @@ def build_llm_deployment(
             self._start_agent_reporter()
 
         # -- model multiplexing ------------------------------------------
+        @contextmanager
+        def _on_model(self, request):
+            """Runs the body on the model ``request`` names (none: on what
+            the engine holds), with swaps held off until it ends."""
+            if not hasattr(self.engine, "swap_params"):
+                yield
+                return
+            model = request.get("model") if isinstance(request, dict) else None
+            while True:
+                self._ensure_model(request)
+                self._gate.acquire_shared()
+                if not model or self.engine.model_id == model:
+                    break
+                self._gate.release_shared()
+            try:
+                yield
+            finally:
+                self._gate.release_shared()
+
         def _ensure_model(self, request) -> None:
             model = (
                 request.get("model") if isinstance(request, dict) else None
@@ -286,7 +368,8 @@ def build_llm_deployment(
                         # lands device frames straight from the arena
                         self._hub.publish(model, version, new_params)
                 t_drain = time.monotonic()
-                epoch = self.engine.swap_params(new_params, model_id=model)
+                with self._gate.alone():
+                    epoch = self.engine.swap_params(new_params, model_id=model)
                 now = time.monotonic()
                 ms.WEIGHT_SWAP_DRAIN_MS.observe(
                     (now - t_drain) * 1000.0, labels=labels
@@ -353,10 +436,10 @@ def build_llm_deployment(
 
         # -- request surface ---------------------------------------------
         def __call__(self, request):
-            self._ensure_model(request)
             prompt = request["prompt"]
             gen = _gen_from_request(request)
-            text = self.engine.generate([prompt], gen)[0]
+            with self._on_model(request):
+                text = self.engine.generate([prompt], gen)[0]
             self._note_first_token()
             return {"prompt": prompt, "generated_text": text}
 
@@ -369,12 +452,12 @@ def build_llm_deployment(
                 raise TypeError(
                     "token streaming requires engine='continuous'"
                 )
-            self._ensure_model(request)
             gen = _gen_from_request(request)
             prompt = self.engine.tokenizer.encode(request["prompt"])
-            for tok in self.engine.stream_ids(prompt, gen):
-                self._note_first_token()
-                yield self.engine.tokenizer.decode([int(tok)])
+            with self._on_model(request):
+                for tok in self.engine.stream_ids(prompt, gen):
+                    self._note_first_token()
+                    yield self.engine.tokenizer.decode([int(tok)])
 
         def stream_to(self, writer, request):
             """Router/ingress streaming contract: decoded token text
@@ -386,34 +469,34 @@ def build_llm_deployment(
                 writer.write("streaming requires engine='continuous'")
                 writer.close_channel()
                 return 0
-            self._ensure_model(request)
             gen = _gen_from_request(request)
             skip = max(0, int(request.get("resume_from", 0)))
             prompt = self.engine.tokenizer.encode(request["prompt"])
-            # disaggregated handoff: graft the prefill worker's KV pages
-            # and stream from the adopted slot — no local prefill. Any
-            # handoff failure falls through to stream_ids (local
-            # re-prefill), the same path a resume_from failover takes.
-            rid = None
-            handoff = (
-                request.get("handoff")
-                if isinstance(request, dict)
-                else None
-            )
-            if handoff and not skip and hasattr(self.engine, "adopt_pages"):
-                rid = self._adopt_handoff(handoff)
-            tokens = (
-                self.engine.stream_rid(rid)
-                if rid is not None
-                else self.engine.stream_ids(prompt, gen)
-            )
             n = 0
-            for tok in tokens:
-                self._note_first_token()
-                if n >= skip:
-                    writer.write(self.engine.tokenizer.decode([int(tok)]))
-                n += 1
-                self._tokens_out += 1
+            with self._on_model(request):
+                # disaggregated handoff: graft the prefill worker's KV pages
+                # and stream from the adopted slot — no local prefill. Any
+                # handoff failure falls through to stream_ids (local
+                # re-prefill), the same path a resume_from failover takes.
+                rid = None
+                handoff = (
+                    request.get("handoff")
+                    if isinstance(request, dict)
+                    else None
+                )
+                if handoff and not skip and hasattr(self.engine, "adopt_pages"):
+                    rid = self._adopt_handoff(handoff)
+                tokens = (
+                    self.engine.stream_rid(rid)
+                    if rid is not None
+                    else self.engine.stream_ids(prompt, gen)
+                )
+                for tok in tokens:
+                    self._note_first_token()
+                    if n >= skip:
+                        writer.write(self.engine.tokenizer.decode([int(tok)]))
+                    n += 1
+                    self._tokens_out += 1
             writer.close_channel()
             return n
 
@@ -446,7 +529,8 @@ def build_llm_deployment(
                 self._variants[model] = new_params
                 if self._hub is not None:
                     self._hub.ensure(model, version, new_params)
-                epoch = self.engine.swap_params(new_params, model_id=model)
+                with self._gate.alone():
+                    epoch = self.engine.swap_params(new_params, model_id=model)
                 now = time.monotonic()
                 ms.WEIGHT_SWAP_MS.observe(
                     (now - t0) * 1000.0, labels=labels
@@ -477,6 +561,8 @@ def build_llm_deployment(
                 "first_token_new_weights_ms_sum": round(
                     self._ft_new_ms_sum, 3
                 ),
+                "swap_gate_wait_ms_max": round(self._gate.wait_ms_max, 3),
+                "swap_gate_deadline_misses": self._gate.deadline_misses,
                 "handoffs": self._handoffs,
                 "handoff_fallbacks": self._handoff_fallbacks,
                 "handoff_bytes": self._handoff_bytes,

@@ -360,11 +360,13 @@ def elastic_rl_step(state, step, gang, config):
     params_finite = bool(torch.isfinite(leaf0.sum()))
     tok_max = -1
     loss_val = float("nan")
+    before = programs.launch_counts()
     if block is not None:
         tokens = _tokens(block, leaf0.device)
         tok_max = int(tokens.max())
         loss, params = sgd_step(params, tokens, mc, float(config["lr"]))
         loss_val = float(loss)
+    after = programs.launch_counts()
     # the collective every step: a rank killed mid-step is detected by
     # the gang's epoch fence, the survivors reshape, and this step
     # replays — pulling the SAME batch from the feed's step cache
@@ -392,5 +394,8 @@ def elastic_rl_step(state, step, gang, config):
             "traj_ids": list(block["traj_ids"]) if block is not None else None,
             "params_finite": params_finite,
             "tok_max": tok_max,
+            # this rank's flash launches in the step, and where it trained
+            "launches": {k: after[k] - before[k] for k in after},
+            "device": str(leaf0.device),
         },
     )

@@ -1521,9 +1521,12 @@ class ElasticTrainer:
         inline_max = int(cfg.inline_object_max)
 
         def live(h: str) -> bool:
-            if locs.get(h):
-                return any(n not in dead for n in locs[h])
-            return 0 < sizes.get(h, 0) <= inline_max
+            # a seal small enough to be held inline lives at the head, and
+            # its sealing node stays in its locations after that node dies
+            # (Queue C 18): its size decides before its locations do
+            if 0 < sizes.get(h, 0) <= inline_max:
+                return True
+            return any(n not in dead for n in locs.get(h, ()))
 
         return [h for h in hexes if live(h)]
 

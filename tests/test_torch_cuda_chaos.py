@@ -1,5 +1,5 @@
-"""The chaos harness on the card: ``chip_smoke.py``'s ``phase_chaos_serve``
-replica-kill plan alone, at a small width. A ``Cluster`` whose head
+"""The chaos harness on the card. ``chip_smoke.py``'s ``phase_chaos_serve``
+replica-kill plan alone, at a small width: a ``Cluster`` whose head
 schedules on the card and whose two agents share it, a continuous
 ``build_llm_deployment`` of 2 f32 replicas on the card (TF32 off),
 ``ServeStreamWorkload`` streams held token for token against the same
@@ -7,6 +7,8 @@ engine on the CPU, and ``make_plan(11, 2, SERVE_MIX,
 allow=("replica_kill",))`` under ``ChaosOrchestrator``: the run ``ok``,
 every stream exact, the replica set backfilled to 2, each backfilled
 replica launching the paged kernel in its own process, no arena zombie.
+Then its ``phase_failover_soak``: every promoted head's state on the card,
+every killed leader's released, one state resident at the end.
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor ray_tpu, so it runs where only the port's dependencies
@@ -117,6 +119,73 @@ def test_replica_kills_mid_stream_recover_on_the_card(cuda):
         if workload is not None:
             workload.stop()
         serve.shutdown()
+        set_runtime(None)
+        rt.shutdown()
+        c.shutdown()
+
+
+def test_failover_soak_promotes_onto_the_card_and_frees_each_corpse(cuda, tmp_path, monkeypatch):
+    """``tests/test_head_failover.py``'s soak (seed 20260805, 8 faults: 3
+    leader kills with promotion, 2 partitions, 3 object drops) with the
+    device scheduler on: every head, each promoted standby's too, keeps its
+    scheduler state on the card; every killed leader's state is released
+    (``Cluster.kill_head``) and one state, the last leader's, holds card
+    memory at the end; no acked object is lost."""
+    import gc
+    import warnings
+
+    import ray_tpu_torch
+    from ray_tpu_torch.chaos import FAILOVER_MIX, ChaosOrchestrator, ChaosWorkload, make_plan
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.runtime import set_runtime
+    from ray_tpu_torch.scheduler.device import DeviceSchedulerState
+
+    monkeypatch.setenv("RAY_TPU_HEAD_HEALTH_TIMEOUT_S", "1.5")
+    monkeypatch.setenv("RAY_TPU_HEALTH_TIMEOUT_S", "4.0")
+    monkeypatch.setenv("RAY_TPU_RPC_BREAKER_WINDOW_S", "2.0")
+    c = Cluster(persist_path=str(tmp_path / "head_state.pkl"))
+    heads = [c.head]
+    adopt = c._adopt_head
+
+    def _adopt(head):
+        heads.append(head)
+        adopt(head)
+
+    c._adopt_head = _adopt
+    c.add_node({"CPU": 2.0}, num_workers=2, wait=False)
+    c.add_node({"CPU": 2.0}, num_workers=2, wait=False)
+    c.wait_for_nodes(2)
+    rt = c.client()
+    set_runtime(rt)
+    try:
+        c.start_standby(auto_promote=True)
+        workload = ChaosWorkload(rt, payload_bytes=150_000, num_actors=1)
+        plan = make_plan(20260805, 8, mix=FAILOVER_MIX,
+                         allow=("head_kill_promote", "partition", "object_drop"))
+        result = ChaosOrchestrator(c, workload, plan, node_resources={"CPU": 2.0},
+                                   partition_hold_s=1.0, convergence_budget_s=90.0).run()
+        assert result.ok, result.summary()
+        assert [(f.spec.index, f.spec.kind) for f in result.faults] == [
+            (f.index, f.kind) for f in plan.faults]
+        assert workload.verify_acked(sample=len(workload.acked)) == []
+        assert len(heads) == 1 + plan.counts()["head_kill_promote"] >= 3
+
+        def square(i):
+            return i * i
+
+        # a shape no lease holds: the last leader places it in its rounds
+        f = ray_tpu_torch.remote(num_cpus=0.5)(square)
+        assert ray_tpu_torch.get([f.remote(i) for i in range(8)], timeout=120) == [
+            i * i for i in range(8)]
+        assert all(h.device_state.device.type == "cuda" for h in heads)
+        assert all(h.device_state.resident_bytes() == 0 for h in heads[:-1])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():  # isinstance reaches deprecated module attributes
+            warnings.simplefilter("ignore")
+            resident = [o for o in gc.get_objects() if isinstance(o, DeviceSchedulerState)
+                        and o.device.type == "cuda" and o.resident_bytes() > 0]
+        assert resident == [heads[-1].device_state]
+    finally:
         set_runtime(None)
         rt.shutdown()
         c.shutdown()

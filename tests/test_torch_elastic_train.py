@@ -450,7 +450,7 @@ def _zygote_of(cluster, node_id: str) -> int:
 
 
 @pytest.mark.slow
-def test_chaos_node_kill_reshape_and_grow_back(monkeypatch):
+def test_chaos_node_kill_reshape_and_grow_back(monkeypatch, tmp_path):
     from ray_tpu_torch.chaos.invariants import InvariantChecker
     from ray_tpu_torch.cluster import Cluster
     from ray_tpu_torch.core.runtime import set_runtime
@@ -473,11 +473,20 @@ def test_chaos_node_kill_reshape_and_grow_back(monkeypatch):
             partials[v] = {"g": np.full(d, float((v + step) % 7))}
         g = gang.allreduce_shards(partials)
         time.sleep(float(config.get("step_sleep", 0.0)))
+        # the shrunk gang waits (bounded) for the replacement node to
+        # register: an agent's start (its imports) can outlast the steps
+        # left after the shrink, and a run that ends first never sees
+        # capacity return
+        deadline = time.monotonic() + 60.0
+        while (gang.world == 1 and not os.path.exists(config["capacity_back"])
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
         return (
             {"w": state["w"] + g["g"], "opt": {"m": state["opt"]["m"] + 1.0}},
             {"step": step, "world": gang.world, "w0": float(state["w"][0])},
         )
 
+    capacity_back = tmp_path / "capacity_back"
     cluster = Cluster(use_device_scheduler=False)
     cluster.add_node({"CPU": 2.0}, num_workers=2)
     cluster.add_node({"CPU": 2.0}, num_workers=2)
@@ -488,7 +497,8 @@ def test_chaos_node_kill_reshape_and_grow_back(monkeypatch):
             el_init,
             el_step,
             total_steps=total_steps,
-            train_loop_config={"dim": 64, "step_sleep": 0.08},
+            train_loop_config={"dim": 64, "step_sleep": 0.08,
+                               "capacity_back": str(capacity_back)},
             elastic_config=ElasticConfig(
                 min_workers=1,
                 max_workers=2,
@@ -526,7 +536,8 @@ def test_chaos_node_kill_reshape_and_grow_back(monkeypatch):
             if any(r["direction"] == "shrink" for r in trainer.reshape_log):
                 break
             time.sleep(0.2)
-        cluster.add_node({"CPU": 2.0}, num_workers=2)
+        cluster.add_node({"CPU": 2.0}, num_workers=2)  # returns once it is registered
+        capacity_back.touch()
         th.join(timeout=240)
         assert not th.is_alive(), "elastic fit() wedged after node kill"
         res = box["res"]
@@ -696,6 +707,117 @@ def test_lost_seal_wave_is_not_picked_again(monkeypatch):
         res = box["res"]
         assert res.error is not None and "no restorable state" in str(res.error)
         assert res.metrics["elastic"]["generations"] <= 15, res.metrics["elastic"]
+    finally:
+        set_runtime(None)
+        try:
+            rt.shutdown()
+        except Exception:  # noqa: BLE001
+            pass
+        cluster.shutdown()
+
+
+
+def test_inline_sized_seal_stays_live_after_its_node_dies():
+    """Queue C 18: a seal small enough for the head to hold inline keeps
+    its sealing node in the directory's locations after that node dies.
+    It stays live (the head still holds its bytes); an arena seal whose
+    only copy was on that node does not (Queue C 6)."""
+    from types import SimpleNamespace
+
+    from ray_tpu_torch import config as rcfg
+    from ray_tpu_torch.train.elastic import ElasticTrainer
+
+    inline_max = int(rcfg.cfg.inline_object_max)
+    sizes = {"small": 1239, "big": inline_max + 1, "lost": 0, "moved": inline_max + 1}
+    locs = {"small": ["dead"], "big": ["dead"], "lost": [], "moved": ["dead", "alive"]}
+    runtime = SimpleNamespace(
+        object_sizes=lambda refs: {r.hex: sizes[r.hex] for r in refs},
+        object_locations=lambda refs: {r.hex: locs[r.hex] for r in refs},
+    )
+    fake = SimpleNamespace(_is_remote=lambda: True, _runtime=lambda: runtime,
+                           _recent_dead={"dead": 0.0})
+    live = ElasticTrainer._live_hexes(fake, ["small", "big", "lost", "moved"])
+    assert live == ["small", "moved"]
+
+
+def test_add_node_returns_once_its_own_node_is_registered():
+    """Queue C 18: a node killed but not yet declared dead still counts
+    as alive at the head, so ``add_node(wait=True)`` waiting for a count
+    of live nodes returned before the replacement registered."""
+    from ray_tpu_torch.cluster import Cluster
+
+    cluster = Cluster(use_device_scheduler=False)
+    try:
+        first = cluster.add_node({"CPU": 1.0}, num_workers=1)
+        cluster.kill_node(first)
+        assert cluster.head.nodes[first].alive  # no verdict yet
+        second = cluster.add_node({"CPU": 1.0}, num_workers=1)
+        assert second in cluster.head.nodes and cluster.head.nodes[second].alive
+    finally:
+        cluster.shutdown()
+
+
+def test_small_seal_wave_restores_after_its_node_dies(monkeypatch):
+    """Queue C 18 end to end: with buddy replication off and ``dim`` 64,
+    every periodic seal (1,239 bytes) is held inline at the head. After
+    rank 1's node dies the gang restores from the last wave and finishes
+    at world 1 with the unreshaped run's state, where the version before
+    the repair ended with "no restorable state"."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    monkeypatch.setenv("RAY_TPU_HEALTH_TIMEOUT_S", "2.0")
+    monkeypatch.setenv("RAY_TPU_ELASTIC_BUDDY_REPLICATE", "0")
+
+    def el_init(config):
+        d = int(config["dim"])
+        return {"w": np.zeros(d), "opt": {"m": np.zeros(d)}}
+
+    def el_step(state, step, gang, config):
+        d = int(config["dim"])
+        partials = {v: {"g": np.full(d, float((v + step) % 7))} for v in gang.owned_shards()}
+        g = gang.allreduce_shards(partials)
+        time.sleep(float(config["step_sleep"]))
+        return (
+            {"w": state["w"] + g["g"], "opt": {"m": state["opt"]["m"] + 1.0}},
+            {"step": step, "world": gang.world, "w0": float(state["w"][0])},
+        )
+
+    total_steps = 24
+    cluster = Cluster(use_device_scheduler=False)
+    cluster.add_node({"CPU": 2.0}, num_workers=2)
+    cluster.add_node({"CPU": 2.0}, num_workers=2)
+    rt = cluster.client()
+    set_runtime(rt)
+    try:
+        trainer = train.ElasticTrainer(
+            el_init, el_step, total_steps=total_steps,
+            train_loop_config={"dim": 64, "step_sleep": 0.08},
+            elastic_config=train.ElasticConfig(
+                min_workers=1, max_workers=2, virtual_shards=4, seal_interval_steps=2,
+                elastic_shard_rules=(r"^opt/m$",), grow=False,
+                placement_strategy="STRICT_SPREAD", resources_per_worker={"CPU": 1.0}),
+        )
+        box = {}
+        th = threading.Thread(target=lambda: box.update(res=trainer.fit()))
+        th.start()
+        deadline = time.monotonic() + 60
+        while trainer.progress()["step"] < 8 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        gangs = rt.head.call("QueryState", {"kind": "gangs"})
+        cluster.kill_node(gangs[trainer.gang_id]["members"]["1"])
+        th.join(timeout=120)
+        assert not th.is_alive(), "elastic fit() wedged after the node kill"
+        res = box["res"]
+        assert res.error is None, res.error
+        el = res.metrics["elastic"]
+        assert "shrink" in [r["direction"] for r in el["reshapes"]], el["reshapes"]
+        assert el["disk_restores"] == 0
+        assert [m["step"] for m in res.metrics_history] == list(range(total_steps))
+        state = trainer.final_state()
+        assert np.array_equal(state["w"], _expected_w(64, total_steps, 4))
+        assert np.array_equal(state["opt"]["m"], np.full(64, float(total_steps)))
     finally:
         set_runtime(None)
         try:

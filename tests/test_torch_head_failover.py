@@ -625,6 +625,81 @@ def test_standby_tables_match_the_reference_standby(tmp_path, monkeypatch):
         h._server.stop()
 
 
+def test_equal_creation_payloads_are_snapshotted_once(tmp_path):
+    """Queue C 20: the replicas of one deployment carry equal creation
+    payloads (the class, and its weights where a closure holds them:
+    ~170 MB at ``ModelConfig()`` f32). The head keeps one bytes object for
+    equal large payloads, so a snapshot (and its barrier to the standbys)
+    carries it once; two replicas' 340 MB outgrew the RPC message limit and
+    froze the standby of the RL soak on the card."""
+    from ray_tpu_torch.cluster.common import LeaseRequest
+
+    h = _mk_head(tmp_path)
+    try:
+        blob = bytes(range(256)) * (8 << 10)  # 2 MiB
+        for i in range(3):
+            spec = LeaseRequest(task_id=f"t{i}", name="Replica", payload=bytes(bytearray(blob)),
+                                return_ids=[], resources={"CPU": 1.0}, kind="actor_creation",
+                                actor_id=f"a{i}")
+            h._h_create_actor({"spec": spec, "class_name": "Replica", "max_restarts": 1})
+        specs = [h._actor_specs[f"a{i}"] for i in range(3)]
+        assert all(s.payload is specs[0].payload for s in specs)
+        assert len(pickle.dumps(h._snapshot_state())) < 2 * len(blob)
+        small = LeaseRequest(task_id="t9", name="Small", payload=b"x" * 64, return_ids=[],
+                             resources={"CPU": 1.0}, kind="actor_creation", actor_id="a9")
+        h._h_create_actor({"spec": small, "class_name": "Small"})
+        assert h._actor_specs["a9"].payload == b"x" * 64
+    finally:
+        h._shutdown = True
+        h._repl.stop()
+        h._server.stop()
+
+def _resident_sched_states():
+    import gc
+    import warnings
+
+    from ray_tpu_torch.scheduler.device import DeviceSchedulerState
+
+    with warnings.catch_warnings():  # isinstance reaches deprecated module attributes
+        warnings.simplefilter("ignore")
+        return [o for o in gc.get_objects()
+                if isinstance(o, DeviceSchedulerState) and o.resident_bytes() > 0]
+
+
+def test_kill_head_frees_the_corpse_scheduler_state(tmp_path, monkeypatch):
+    """``Cluster.kill_head`` frees the killed leader's scheduler state, as
+    a killed process frees its card memory, and keeps the corpse with its
+    tables in ``_dead_heads`` for the split-brain probe: after the standby
+    promotes, the probe runs over the corpse and one state is resident."""
+    from ray_tpu_torch.chaos.invariants import InvariantChecker
+
+    monkeypatch.setenv("RAY_TPU_HEAD_HEALTH_TIMEOUT_S", "1.5")
+    c = Cluster(persist_path=str(tmp_path / "head_state.pkl"))
+    c.add_node({"CPU": 1.0}, num_workers=1)
+    rt = c.client()
+    set_runtime(rt)
+    try:
+        f = ray_tpu_torch.remote(_produce)
+        assert ray_tpu_torch.get(f.remote(1), timeout=60) == _produce(1)
+        corpse = c.head
+        assert corpse.device_state.resident_bytes() > 0
+        c.start_standby(auto_promote=True)
+        pre_epoch = corpse.cluster_epoch
+        c.kill_head()
+        assert c._dead_heads == [corpse]
+        assert corpse.device_state.resident_bytes() == 0
+        assert InvariantChecker(c, workload=None).wait_standby_promoted(
+            pre_epoch, timeout=30.0) == []
+        assert c.head is not corpse and c.head.cluster_epoch > pre_epoch
+        assert corpse.address and corpse.nodes  # the probe's tables stay
+        assert ray_tpu_torch.get(f.remote(2), timeout=60) == _produce(2)
+        assert _resident_sched_states() == [c.head.device_state]
+    finally:
+        set_runtime(None)
+        rt.shutdown()
+        c.shutdown()
+
+
 @pytest.mark.slow
 def test_failover_chaos_soak(monkeypatch):
     """Slow soak: leader kills + promotions interleaved with partitions

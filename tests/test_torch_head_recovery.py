@@ -764,3 +764,49 @@ def test_a_task_running_across_a_head_restart_runs_once(tmp_path, monkeypatch):
         set_runtime(None)
         rt.shutdown()
         c.shutdown()
+
+
+class _Named:
+    def ping(self):
+        return "pong"
+
+
+def test_a_restarted_actor_keeps_its_name_through_a_head_that_lost_it(monkeypatch):
+    """An actor restarted after its node died is re-created from a copy of
+    its creation lease; that copy now carries the actor's name, restart
+    budget, lifetime and owner (``actor_meta``) to the new agent, as the
+    reference's head-restart path copies them (its node-death path, like
+    the port's before, does not). A head that lost its tables (here one
+    restarted without persistence; on the card, a standby promoted in the
+    RL soak) re-attaches the running actor from the agent's report: it
+    binds the name again and keeps the restart budget."""
+    monkeypatch.setenv("RAY_TPU_HEALTH_TIMEOUT_S", "2.0")
+    c = Cluster(use_device_scheduler=False)
+    c.add_node({"CPU": 2.0}, num_workers=2)
+    c.add_node({"CPU": 2.0}, num_workers=2)
+    rt = c.client()
+    set_runtime(rt)
+    try:
+        actor = ray_tpu_torch.remote(_Named).options(name="kept-name", max_restarts=3).remote()
+        assert ray_tpu_torch.get(actor.ping.remote(), timeout=60) == "pong"
+        aid = actor._actor_id
+        c.kill_node(c.head._actors[aid].node_id)
+        c.add_node({"CPU": 2.0}, num_workers=2)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                c.head._actors[aid].num_restarts == 1 and c.head._actors[aid].state == "ALIVE"):
+            time.sleep(0.1)
+        assert ray_tpu_torch.get(actor.ping.remote(), timeout=60) == "pong"
+        c.restart_head()  # no persist_path: the new head knows no actor
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and aid not in c.head._actors:
+            time.sleep(0.1)
+        info = c.head._actors[aid]
+        assert c.head._named_actors.get("kept-name") == aid
+        assert (info.name, info.max_restarts) == ("kept-name", 3)
+        assert ray_tpu_torch.get(ray_tpu_torch.get_actor("kept-name").ping.remote(),
+                                 timeout=60) == "pong"
+    finally:
+        set_runtime(None)
+        rt.shutdown()
+        c.shutdown()

@@ -460,6 +460,54 @@ def test_a_replica_moves_its_variants_once_and_swaps_to_them():
             server._hub._evict_locked()
 
 
+def test_a_stream_pinned_to_a_model_runs_on_it_across_a_swap():
+    """A stream that names its model runs on that model's weights even when
+    a swap to another model is asked for between the replica's pin check
+    and the stream's admission: the engine admits a queued request on the
+    new weights, so a running stream holds the swap off until it ends (the
+    online-RL soak's "epochs mixed mid-stream" on the card, where a publish
+    swaps a replica while it streams). Here the submit is held up to 1 s
+    while a swap to m1 is asked for; the version before the gate streamed
+    on m1."""
+    import threading
+
+    from ray_tpu_torch.llm import build_llm_deployment
+
+    _, _, ct, base = _models(0)
+    _, _, _, alt = _models(1)
+    app = build_llm_deployment(ct, base, engine="continuous", device="cpu",
+                               variants={"m1": alt}, base_model_id="m0",
+                               name=f"pin-{time.monotonic_ns()}", **ENGINE)
+    server = app.deployment.func_or_class()
+    request = {"prompt": "pin me", "max_new_tokens": 8, "model": "m0"}
+    try:
+        want = list(server.stream_tokens(request))
+        eng = server.engine
+        in_submit, swapped = threading.Event(), threading.Event()
+        submit = eng.submit
+
+        def held_submit(prompt, gen):
+            in_submit.set()
+            swapped.wait(1.0)
+            return submit(prompt, gen)
+
+        def swap():
+            in_submit.wait(30.0)
+            server.swap_weights({"model": "m1"})
+            swapped.set()
+
+        eng.submit = held_submit
+        th = threading.Thread(target=swap)
+        th.start()
+        got = list(server.stream_tokens(request))
+        th.join(timeout=60.0)
+        assert not th.is_alive() and swapped.is_set()
+        assert got == want
+        assert server.engine.model_id == "m1"  # the swap landed after the stream
+    finally:
+        if server._hub is not None:
+            server._hub._evict_locked()
+
 def test_a_replica_without_a_card_raises():
     """The replicas' default device is the card: without one a replica
     raises, as ``_device.resolve_device`` does, and never moves to the
