@@ -127,14 +127,17 @@ passes or exits non-zero:
    a cluster of its own, ``phase_mixed_fleet``: bench.py's
    ``elasticity_bench`` part (a) (two agents of 4 CPUs × 4 workers, the
    elasticity controller on, tick 0.5 s; 2 continuous replicas of
-   ``ModelConfig()`` f32 under its hot/cold prompts at QPS 1.5, 10, 1.5
-   for 8, 10 and 8 s beside an elastic gang of its numpy step, SPREAD,
-   1-2 ranks): the gang at world 2 in both troughs and ceding at the peak
-   when and only when a tick hinted fewer ranks, only cede and grow
-   reshapes, no disk restore, no errored request, paged launches in each
-   replica (``mixed_fleet_launches``), every controller solve and head
-   round replayed equal on the CPU; retention, serve p99 and the
-   reshapes printed;
+   ``ModelConfig()`` f32 behind a router that admits 8 requests at a time,
+   under its hot/cold prompts at QPS 1.5, twice the replicas' measured
+   completion rate, and 1.5 for 8, 10 and 8 s, beside an elastic gang of
+   its numpy step, SPREAD, 1-2 ranks): requests parked at the peak, the
+   controller hinting fewer ranks and the gang ceding there (only when
+   hinted), world 2 in both troughs, only cede and grow reshapes, no disk
+   restore, no errored request (sheds counted apart by reason), paged
+   launches in each replica (``mixed_fleet_launches``), every controller
+   solve and head round replayed equal on the CPU; each step's reached
+   arrival rate, completed requests a second and most requests in flight,
+   retention, serve p99 and the reshapes printed;
 5e. online RL (``ray_tpu_torch/rl/``; ``phase_rl``): bench.py's
    ``rl_loop_bench`` traffic (2 rollout workers x 2 prompts a step, 6 prompt
    and 6 new tokens, batch 4, 8 steps, seed 3, a publish every 2 steps) on
@@ -151,7 +154,9 @@ passes or exits non-zero:
    their plain versions; then an f32
    loop of 2 steps on the card against the CPU's plain path, every
    trajectory token-equal and the losses within 1e-4. Then
-   ``phase_rl_soak``: ``tests/test_rl_loop.py``'s triple chaos soak on the
+   ``phase_rl_soak`` (in a child process, ``--rl_soak``, beside the phases
+   from ``phase_rllib`` to the last; it prints its launches as JSON for
+   the kernel line): ``tests/test_rl_loop.py``'s triple chaos soak on the
    card (a WAL head with an auto-promoting standby, 2 continuous replicas
    of ``ModelConfig()`` f32 as rollout workers, an elastic trainer gang of
    ``elastic_rl_step`` on the card, a shadow trainer publishing through the
@@ -280,13 +285,24 @@ passes or exits non-zero:
    wall printed;
 12b. runs ``tests/test_head_failover.py``'s soak (``phase_failover_soak``,
    in a second child process, ``--failover``, from after
-   ``phase_elastic_train`` to before ``phase_serving``): a WAL head on the
+   ``phase_elastic_train`` to before ``phase_mixed_fleet``): a WAL head on the
    card with an auto-promoting standby, two 2-CPU agents, ``ChaosWorkload``
    and seed 20260805's 8 faults (3 leader kills with promotion, 2
    partitions, 3 object drops): the run ``ok``, the schedule equal to the
    plan, every acked object read back, every promoted head's state on the
    card, every killed leader's released and one state resident at the end,
    every head and ring round replayed equal on the CPU;
+12c. runs ``tests/test_preemption.py``'s three cluster scenarios
+   (``phase_preemption``, in a third child process, ``--preemption``, from
+   after ``phase_mixed_fleet`` to before the last phase), each on a fresh
+   ``Cluster`` with its head on the card under the reference's fixture
+   (a shape starves after 2 retry rounds, 0.2 s cooldown): (a) two running
+   retryable sleepers of 10 s killed and requeued for a starving 2-CPU
+   task, which ends before they would have; (b) ``max_retries=0`` sleepers
+   never killed, each run once, the big task after them; (c) a storm over
+   two nodes with one killed: no acked object lost, no at-most-once task
+   run twice; nominations and preemptions in (a) and (c), every head and
+   ring round (nominations too) replayed equal on the CPU, no ERROR record;
 13. serves the head's dashboard (first, while nvcc builds the kernels of
    phase 1, since it needs none of them) (``dashboard_port=0``, the standard
    library's ``ThreadingHTTPServer``) over two agents, tasks, two actors
@@ -2141,14 +2157,17 @@ def serve_app(cfg, params, name, device, **kw):
                                 ray_actor_options=gpu, **kw)
 
 
-def run_stream(router, payload, tenant=None):
-    """(the stream's token ids, or None when it was shed; an error raises)."""
+def run_stream(router, payload, tenant=None, sheds=None):
+    """(the stream's token ids, or None when it was shed, its reason then
+    counted in ``sheds`` if given; an error raises)."""
     from ray_tpu_torch.serve.admission import Overloaded
 
     args = (payload,) if tenant is None else (payload, tenant)
     try:
         stream = router.stream(*args)
-    except Overloaded:
+    except Overloaded as exc:
+        if sheds is not None:
+            sheds[exc.reason] = sheds.get(exc.reason, 0) + 1
         return None
     try:
         return text_ids(list(stream))
@@ -2755,11 +2774,14 @@ def phase_serving(device: str = "cuda", model=None) -> tuple:
         close_cluster(*cluster)
 
 
-# bench.py elasticity_bench part (a)'s walk: (label, QPS, seconds)
-MIXED_WALK = (("trough A", 1.5, 8.0), ("peak", 10.0, 10.0), ("trough B", 1.5, 8.0))
+# bench.py elasticity_bench part (a)'s walk: (label, QPS, seconds), its peak
+# raised from bench.py's 10 QPS to twice the two replicas' completed
+# requests/s measured on the card (PERF.md section 4), so requests park
+MIXED_WALK = (("trough A", 1.5, 8.0), ("peak", 80.0, 10.0), ("trough B", 1.5, 8.0))
+# the router admits what its replicas can batch: 2 replicas x max_batch 4
 MIXED_ENV = {"RAY_TPU_ELASTIC_CONTROLLER": "1", "RAY_TPU_ELASTIC_TICK_S": "0.5",
              "RAY_TPU_ELASTIC_RETIRE_MAX": "0", "RAY_TPU_ELASTIC_PROVISION_MAX": "0",
-             "RAY_TPU_HEALTH_TIMEOUT_S": "2.0"}
+             "RAY_TPU_HEALTH_TIMEOUT_S": "2.0", "RAY_TPU_SERVE_ADMISSION_MAX_INFLIGHT": "8"}
 
 
 def mixed_fleet_verdicts(timeline, reshapes, disk_restores: int, errored: int,
@@ -2767,30 +2789,39 @@ def mixed_fleet_verdicts(timeline, reshapes, disk_restores: int, errored: int,
     """What the mixed fleet must show, as a list of failures. ``timeline``
     holds (walk label, gang world, the controller's world hint, parked serve
     requests) samples; as in bench.py a trough's world is the largest of its
-    last 4 samples. The gang holds world 2 in both troughs; at the peak it
-    cedes when, and only when, a tick hinted fewer ranks (bench.py: "any
-    cede the controller orders shows up as a dip"); every reshape is a cede
-    or a grow; no disk restore, no errored request, paged launches in each
-    replica."""
+    last 4 samples. ``reshapes`` holds (direction, from world, to world,
+    walk label) with a shrink no node death caused named ``cede``. The
+    peak's overload must take the cede path: requests park, the controller
+    hints fewer ranks, the gang cedes at the peak (and only when hinted),
+    and grows back to world 2 in trough B; world 2 in trough A; every
+    reshape a cede or a grow; no disk restore, no errored request (a shed
+    is no error), paged launches in each replica."""
     out = []
     by = {}
-    for label, world, hint, _ in timeline:
-        by.setdefault(label, []).append((world, hint))
+    for label, world, hint, parked in timeline:
+        by.setdefault(label, []).append((world, hint, parked))
     for label in ("trough A", "trough B"):
-        worlds = [w for w, _ in by.get(label, [])][-4:]
+        worlds = [w for w, _, _ in by.get(label, [])][-4:]
         if max(worlds, default=0) != 2:
             out.append(f"{label}: the gang's world {worlds}, not 2")
     peak = by.get("peak", [])
+    peak_cedes = [r for r in reshapes if r[0] == "cede" and r[3] == "peak"]
     if not peak:
         out.append("no sample at the peak")
     else:
-        hints = [h for _, h in peak if h is not None]
-        ceded = min(w for w, _ in peak) < 2
+        hints = [h for _, h, _ in peak if h is not None]
+        ceded = min(w for w, _, _ in peak) < 2 or bool(peak_cedes)
         ordered = bool(hints) and min(hints) < 2
-        if ordered and not ceded:
+        if max(n for _, _, n in peak) == 0:
+            out.append("no request parked at the peak")
+        if not ordered:
+            out.append(f"no hint below 2 at the peak ({sorted(set(hints))})")
+        elif not ceded:
             out.append(f"the controller hinted {min(hints)} at the peak and the gang held 2")
         if ceded and not ordered:
-            out.append(f"the gang left world 2 at the peak with no hint below 2 ({hints})")
+            out.append("the gang left world 2 at the peak with no hint below 2")
+        if not peak_cedes:
+            out.append(f"no cede reshape at the peak (reshapes {reshapes})")
     odd = [r for r in reshapes if r[0] not in ("cede", "grow")]
     if odd:
         out.append(f"reshapes other than cede and grow: {odd}")
@@ -2801,6 +2832,14 @@ def mixed_fleet_verdicts(timeline, reshapes, disk_restores: int, errored: int,
     if len(launches) != 2 or not all(n > 0 for n in launches):
         out.append(f"paged launches per replica {launches}")
     return out
+
+
+def request_outcomes(results, max_new: int) -> tuple:
+    """(completed, shed, errored) of the walk's requests: a completed one
+    gave ``max_new`` tokens, a shed one None (``Overloaded``), an errored
+    one -1 or an exception (bench.py counts both as errors)."""
+    errored = sum(isinstance(r, Exception) or r == -1 for r in results)
+    return (sum(r == max_new for r in results), sum(r is None for r in results), errored)
 
 
 def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
@@ -2814,9 +2853,15 @@ def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
     hot/cold prompts (seed 11, 80% hot, ``max_new`` tokens) at QPS 1.5 for
     8 s, 10 for 10 s, 1.5 for 8 s, beside an elastic gang of bench.py's
     numpy step (dim 2048, work 32, 4 virtual shards, SPREAD, min 1, max 2,
-    grow) stopped 20 steps after the walk (of its 800). ``mixed_fleet_verdicts``
+    grow) stopped 20 steps after the walk (of its 800). The router admits 8
+    requests at a time (``MIXED_ENV``) and the peak's rate is twice what the
+    replicas complete, so requests park in its waiting room and the
+    controller cedes the gang's seats to them. ``mixed_fleet_verdicts``
     must hold; every head and ring round and every controller solve replays
-    equal on the CPU; no ERROR record. Returns the replicas' paged launches."""
+    equal on the CPU; no ERROR record. Prints, for each step of the walk,
+    the arrival rate the open loop reached, the requests completed a second
+    and the most in flight (the open loop's, and the router's admitted).
+    Returns the replicas' paged launches."""
     import random
     import tempfile
     import threading
@@ -2872,7 +2917,20 @@ def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
     c = _cluster(device)
     gpu = {"GPU": 1.0} if device == "cuda" else {}
     timeline, results, walls = [], [], {}
+    label = [walk[0][0]]
+    sheds, most, admitted, done_at, windows, arrived = {}, {}, {}, [], {}, {}
     stop_evt = threading.Event()
+    ctl, ticks = c.head._elasticity, []
+    real_tick = ctl.tick
+
+    def tick():  # each controller tick's step of the walk, ms, rows and hints
+        t = time.perf_counter()
+        out = real_tick()
+        ticks.append((label[0], (time.perf_counter() - t) * 1e3, out["demand_rows"],
+                      min(out["world_hints"].values(), default=None)))
+        return out
+
+    ctl.tick = tick
     try:
         add_nodes(c, *[({"CPU": 4.0, **gpu}, dict(num_workers=4))] * 2)
         client = c.client()
@@ -2882,14 +2940,25 @@ def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
             serve.run(serve_app(cfg32, p32, name, device, num_replicas=2, **SERVE_ENGINE))
             router = serve.get_router(name)
             rng = random.Random(11)
+            flight = threading.Lock()
+            in_flight = [0]
 
             def one_request(idx):
                 prompt = (rng.choice(SERVE_HOT) if rng.random() < 0.8
                           else f"cold prompt number {idx} with some extra words")
+                with flight:
+                    in_flight[0] += 1
+                    most[label[0]] = max(most.get(label[0], 0), in_flight[0])
                 try:
-                    got = run_stream(router, {"prompt": prompt, "max_new_tokens": max_new})
+                    got = run_stream(router, {"prompt": prompt, "max_new_tokens": max_new},
+                                     sheds=sheds)
                 except Exception:  # noqa: BLE001 - counted as errored, as bench.py does
                     return -1
+                finally:
+                    with flight:
+                        in_flight[0] -= 1
+                if got is not None:
+                    done_at.append(time.monotonic())
                 return None if got is None else len(got)
 
             warm = [threading.Thread(target=one_request, args=(i,)) for i in range(4)]
@@ -2921,7 +2990,7 @@ def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
                 time.sleep(0.1)
             check("exc" not in box and fit_th.is_alive(),
                   f"mixed fleet: the gang did not start: {box.get('exc')!r}")
-            label = [walk[0][0]]
+            most.clear()
 
             def sample():
                 while not stop_evt.is_set():
@@ -2931,9 +3000,12 @@ def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
                                       for reps in c.head._serve_budget.values()
                                       for rep in reps.values()
                                       for t in (rep.get("pressure") or {}).values())
+                    n = router.admission.stats()["inflight"]
+                    admitted[label[0]] = max(admitted.get(label[0], 0), n)
                     if g:
                         timeline.append((label[0], len(g.get("members") or {}),
-                                         g.get("world_hint"), waiting))
+                                         g.get("world_hint"), waiting,
+                                         len(trainer.reshape_log)))
                     stop_evt.wait(0.5)
 
             threading.Thread(target=sample, daemon=True, name="mixed-sample").start()
@@ -2944,6 +3016,8 @@ def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
                 got, _ = open_loop(one_request, qps, seconds)
                 results += got
                 walls[label[0]] = (trainer.progress()["step"] - s0) / (time.monotonic() - w0)
+                windows[label[0]] = (w0, w0 + seconds)
+                arrived[label[0]] = len(got)
             p99 = window_pct(SERVE_E2E_MS, lbl, e2e0, 0.99)
             stop_evt.set()
             with open(stop_file, "w") as f:
@@ -2971,25 +3045,46 @@ def phase_mixed_fleet(device: str = "cuda", model=None, max_new: int = 8,
         for k in (*MIXED_ENV, "NVIDIA_TF32_OVERRIDE"):
             os.environ.pop(k, None)
     el = res.metrics["elastic"]
-    reshapes = [(r["direction"], r["from_world"], r["to_world"]) for r in el["reshapes"]]
-    errored = sum(isinstance(r, Exception) or r == -1 for r in results)
-    completed = sum(r == max_new for r in results)
+    reshapes = []
+    for i, r in enumerate(el["reshapes"]):
+        # a shrink no node death caused is the controller's cede
+        kind = "cede" if r["direction"] == "shrink" and not r["dead_nodes"] else r["direction"]
+        when = next((lab for lab, *_, n in timeline if n > i), None)
+        reshapes.append((kind, r["from_world"], r["to_world"], when))
+    completed, shed, errored = request_outcomes(results, max_new)
     rate_a, rate_b = walls[walk[0][0]], walls[walk[-1][0]]
-    peak = [(w, h, n) for lab, w, h, n in timeline if lab == walk[1][0]]
+    peak = [(w, h, n) for lab, w, h, n, _ in timeline if lab == walk[1][0]]
+    for lab, qps, seconds in walk:
+        mine = [t for t in ticks if t[0] == lab]
+        print(f"mixed fleet {lab}: {len(mine)} controller ticks, ms "
+              f"{', '.join(f'{ms:.0f}' for _, ms, _, _ in mine)}; demand rows "
+              f"{[r for _, _, r, _ in mine]}; gang hints {[h for *_, h in mine]}")
+        lo, hi = windows[lab]
+        print(f"mixed fleet {lab}: {qps} QPS asked, {arrived[lab] / seconds:.2f} reached "
+              f"({arrived[lab]} arrivals in {seconds} s); "
+              f"{sum(lo <= t < hi for t in done_at) / seconds:.2f} requests completed a "
+              f"second; most in flight {most.get(lab, 0)} in the open loop, "
+              f"{admitted.get(lab, 0)} admitted at the router")
     print(f"mixed fleet ModelConfig() f32 x 2 replicas + elastic gang, controller on "
           f"[{card_line()}]: {len(results)} requests, {completed} completed, {errored} "
-          f"errored, {sum(r is None for r in results)} shed; serve e2e p99 {p99:.1f} ms; gang "
+          f"errored, {shed} shed {sheds}; serve e2e p99 "
+          f"{p99:.1f} ms; gang "
           f"step rate trough A {rate_a:.2f}/s, trough B {rate_b:.2f}/s, "
           f"mixed_fleet_retention_pct {100.0 * rate_b / rate_a if rate_a else 0.0:.1f}; "
           f"worlds (trough A, peak min, trough B) "
-          f"({max([w for lab, w, _, _ in timeline if lab == walk[0][0]][-4:], default=0)}, "
+          f"({max([t[1] for t in timeline if t[0] == walk[0][0]][-4:], default=0)}, "
           f"{min([w for w, _, _ in peak], default=0)}, "
-          f"{max([w for lab, w, _, _ in timeline if lab == walk[-1][0]][-4:], default=0)}); "
+          f"{max([t[1] for t in timeline if t[0] == walk[-1][0]][-4:], default=0)}); "
           f"peak hints {sorted({h for _, h, _ in peak}, key=str)}, parked serve requests at the "
           f"peak max {max([n for _, _, n in peak], default=0)}; reshapes {reshapes}, disk "
           f"restores {el['disk_restores']}, {len(res.metrics_history)} steps (of 800); paged "
           f"launches per replica {launches}")
-    failures = mixed_fleet_verdicts(timeline, reshapes, el["disk_restores"], errored, launches)
+    print("mixed fleet timeline (label: world/hint/parked/reshapes every 0.5 s): "
+          + "; ".join(f"{lab}: " + " ".join(f"{w}/{h}/{n}/{k}" for l2, w, h, n, k in timeline
+                                            if l2 == lab)
+                      for lab, _, _ in walk))
+    failures = mixed_fleet_verdicts([t[:4] for t in timeline], reshapes, el["disk_restores"],
+                                    errored, launches)
     check(not failures, f"mixed fleet: {failures}")
     check(len(res.metrics_history) < 800, "mixed fleet: the gang's 800 steps ended before the walk")
     errors.check("mixed fleet")
@@ -3756,7 +3851,7 @@ def shuffle_pass(vector: bool, device: str, rows: int, parts: int, loc_parts: in
                 with_loc = [d for d, has in seen if has]
                 check(with_loc and all(d == device for d in with_loc),
                       f"data: the locality rounds ran on {sorted(set(with_loc))}, not {device}")
-                for i, (args, kw, node, avail_out) in enumerate(records):
+                for i, (args, kw, node, avail_out, _) in enumerate(records):
                     out = impl(*args, **kw)
                     check(torch.equal(out.node, node) and torch.equal(out.avail_out, avail_out),
                           f"data: head round {i} of {len(records)} replays differently on the CPU")
@@ -4525,8 +4620,10 @@ def runtime_burst(label: str, device: str, num_tasks: int = 10_000, passes: int 
 
 def _record_rounds():
     """Wraps the round program so each call's inputs (resident totals,
-    avail, alive, node types, shapes, ids, ages, seed, options) and its
-    node rows are kept on the host; returns (records, restore)."""
+    avail, alive, node types, shapes, ids, ages, seed, options), its node
+    rows, its avail and its preemption nominations (None when the round
+    nominates none) are kept on the host; returns (records, impl,
+    restore)."""
     from ray_tpu_torch.scheduler import hybrid as H
 
     impl = H.hybrid_schedule_shapes_multi_impl
@@ -4537,7 +4634,8 @@ def _record_rounds():
         kw = {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
               for k, v in kwargs.items()}
         res = impl(*args, **kwargs)
-        records.append((host, kw, res.node.cpu().clone(), res.avail_out.cpu().clone()))
+        pre = res.preempt_node.cpu().clone() if kwargs.get("preempt") else None
+        records.append((host, kw, res.node.cpu().clone(), res.avail_out.cpu().clone(), pre))
         return res
 
     H.hybrid_schedule_shapes_multi_impl = _recorded
@@ -4746,7 +4844,7 @@ def phase_runtime():
             restore()
         errors.check("functional workload")
         check(len(records) > 0, "runtime: no round was recorded")
-        for i, (args, kw, node, avail_out) in enumerate(records):
+        for i, (args, kw, node, avail_out, _) in enumerate(records):
             res = impl(*args, **kw)
             check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
                   f"runtime: round {i} of {len(records)} replays differently on the CPU")
@@ -5033,18 +5131,30 @@ def _record_ring_rounds():
     return records, impl, restore
 
 
+def unequal_replays(records, impl, ring_records, ring_impl) -> list:
+    """Runs every head round and ring round recorded by ``_record_rounds``
+    and ``_record_ring_rounds`` again on the CPU; names each whose outputs
+    (the nominations too) differ."""
+    out = []
+    for i, (args, kw, node, avail_out, pre) in enumerate(records):
+        res = impl(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args], **kw)
+        if not (torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out)
+                and (pre is None or torch.equal(res.preempt_node, pre))):
+            out.append(f"head round {i} of {len(records)}")
+    for i, (args, kw, outs, _, _) in enumerate(ring_records):
+        res = ring_impl(*args, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(res, outs)):
+            out.append(f"ring round {i} of {len(ring_records)}")
+    return out
+
+
 def _replay_rounds(label: str, records, impl, ring_records, ring_impl) -> None:
     """Every head round and ring round recorded by ``_record_rounds`` and
     ``_record_ring_rounds`` runs again on the CPU with equal outputs."""
     check(len(records) + len(ring_records) > 0, f"{label}: no head round was recorded")
-    for i, (args, kw, node, avail_out) in enumerate(records):
-        res = impl(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args], **kw)
-        check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
-              f"{label}: head round {i} of {len(records)} replays differently on the CPU")
-    for i, (args, kw, outs, _, _) in enumerate(ring_records):
-        res = ring_impl(*args, **kw)
-        check(all(torch.equal(a, b) for a, b in zip(res, outs)),
-              f"{label}: ring round {i} of {len(ring_records)} replays differently on the CPU")
+    bad = unequal_replays(records, impl, ring_records, ring_impl)
+    check(not bad, f"{label}: {', '.join(bad[:3])} replay differently on the CPU "
+                   f"({len(bad)} in all)")
 
 
 def _vec(n, seed):
@@ -5263,7 +5373,7 @@ def phase_cluster():
         errors.check("cluster functional workload")
         print(f"cluster phase: functional workload done at {time.perf_counter() - t0:.1f} s")
         check(len(records) > 0, "cluster: no head round was recorded")
-        for i, (args, kw, node, avail_out) in enumerate(records):
+        for i, (args, kw, node, avail_out, _) in enumerate(records):
             res = impl(*args, **kw)
             check(torch.equal(res.node, node) and torch.equal(res.avail_out, avail_out),
                   f"cluster: head round {i} of {len(records)} replays differently on the CPU")
@@ -5825,13 +5935,15 @@ def phase_chaos(device: str = "cuda", num_faults: int = CHAOS_FAULTS):
     actor), ``make_plan(20260803, num_faults)`` (the first faults of
     bench.py's 20) under ``ChaosOrchestrator`` (partition hold 1 s,
     convergence budget 60 s), then, on the same cluster,
-    ``make_plan(20260803, 1, allow=("head_restart",))``. Both runs ``ok``,
+    ``make_plan(20260803, 1, allow=("head_restart",))``, then 16 tasks of a
+    shape no lease holds, which the restarted head places. Both runs ``ok``,
     the injected schedule equal to the plan, zero acked-object loss, no
     arena zombie, no ERROR record; every head and ring round of the phase
     (after the restart too) replays equal on the CPU; after the restart the
     old head's state holds no device memory and one state holds it."""
     import tempfile
 
+    import ray_tpu_torch as rtt
     from ray_tpu_torch.chaos import ChaosOrchestrator, ChaosWorkload, make_plan
     from ray_tpu_torch.cluster.rpc import _BREAKERS
     from ray_tpu_torch.core.runtime import set_runtime
@@ -5863,6 +5975,16 @@ def phase_chaos(device: str = "cuda", num_faults: int = CHAOS_FAULTS):
                                                  partition_hold_s=1.0, convergence_budget_s=60.0)
                         t1 = time.perf_counter()
                         runs.append((plan, orch.run(), time.perf_counter() - t1))
+
+                    # a shape no lease holds: the restarted head's rounds place it
+                    # (the workload's own tasks may all ride cached leases)
+                    def burst(i):
+                        return i * i
+
+                    f = rtt.remote(num_cpus=0.5)(burst)
+                    got = rtt.get([f.remote(i) for i in range(16)], timeout=120)
+                    check(got == [i * i for i in range(16)],
+                          f"chaos: the restarted head's burst gave {got[:3]}...")
                 finally:
                     set_runtime(None)
                     client.shutdown()
@@ -6076,6 +6198,243 @@ def phase_failover_soak(device: str = "cuda", num_faults: int = FAILOVER_FAULTS)
     print(f"failover soak replay: {len(records)} head rounds and {len(ring_records)} ring rounds "
           f"of the {len(heads)} heads replayed on the CPU, every output equal")
     print(f"failover soak phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# executed preemption: tests/test_preemption.py's three cluster scenarios
+# ---------------------------------------------------------------------------
+# tests/test_preemption.py:53-57's fixture: a shape starves after 2 park
+# retry rounds, 0.2 s between preemptions of one shape
+PREEMPT_ENV = {"RAY_TPU_SCHED_STARVE_ROUNDS": "2", "RAY_TPU_SCHED_PREEMPT_COOLDOWN_S": "0.2",
+               "RAY_TPU_SCHED_PREEMPT": "1"}
+PREEMPT_SLEEP_S = {"retryable": 10.0, "at-most-once": 8.0, "storm": 6.0}  # the reference's
+
+
+def preemption_verdicts(runs: dict, rounds: int, unequal: list, errors: list) -> list:
+    """What the three preemption scenarios must show, as a list of
+    failures. ``runs`` maps each scenario to what it saw: the head's
+    ``nominations`` and ``preemptions``; for ``retryable``, the big task's
+    value ``big`` and seconds ``big_s`` against the sleepers' ``sleep_s``,
+    the sleepers' values ``victims`` and executions ``runs``; for
+    ``at-most-once`` the same, and ``after_s``, how long after the last
+    sleeper's natural end the big task ended; for ``storm``, ``lost`` (a
+    retryable or starving task without its value), ``once_runs`` (the
+    at-most-once tasks' executions) and ``unresolved`` (at-most-once tasks
+    with neither a value nor an error). ``rounds`` is the head and ring
+    rounds recorded, ``unequal`` those whose CPU replay differed, ``errors``
+    the ERROR records."""
+    out = []
+    a = runs.get("retryable")
+    if a is None:
+        out.append("(a) retryable: did not run")
+    else:
+        if a["nominations"] == 0:
+            out.append("(a) retryable: no preemption nomination")
+        if a["preemptions"] == 0:
+            out.append("(a) retryable: no preemption executed")
+        if a["big"] != "ok" or a["big_s"] >= 0.9 * a["sleep_s"]:
+            out.append(f"(a) retryable: the big task gave {a['big']!r} after {a['big_s']:.1f} s, "
+                       f"not before the sleepers' natural end ({a['sleep_s']:.0f} s)")
+        if a["victims"] != ["slept"] * len(a["runs"]) or min(a["runs"], default=0) < 2:
+            out.append(f"(a) retryable: the victims gave {a['victims']} after {a['runs']} "
+                       f"executions, not requeued and complete")
+    b = runs.get("at-most-once")
+    if b is None:
+        out.append("(b) at-most-once: did not run")
+    else:
+        if b["preemptions"] or b["runs"] != [1] * len(b["runs"]) \
+                or b["victims"] != ["slept"] * len(b["runs"]):
+            out.append(f"(b) at-most-once: a max_retries=0 task was killed ({b['preemptions']} "
+                       f"preemptions, executions {b['runs']}, values {b['victims']})")
+        if b["big"] != "ok" or b["after_s"] < 0:
+            out.append(f"(b) at-most-once: the big task gave {b['big']!r} "
+                       f"{-b['after_s']:.1f} s before the sleepers' natural end")
+    c = runs.get("storm")
+    if c is None:
+        out.append("(c) storm: did not run")
+    else:
+        if c["nominations"] == 0:
+            out.append("(c) storm: no preemption nomination")
+        if c["preemptions"] == 0:
+            out.append("(c) storm: no preemption executed")
+        if c["lost"]:
+            out.append(f"(c) storm: {c['lost']} acked objects lost")
+        if any(n > 1 for n in c["once_runs"]):
+            out.append(f"(c) storm: an at-most-once task ran more than once {c['once_runs']}")
+        if c["unresolved"]:
+            out.append(f"(c) storm: {c['unresolved']} at-most-once tasks never resolved")
+    if rounds == 0:
+        out.append("no head or ring round was recorded")
+    if unequal:
+        out.append(f"unequal on the CPU replay: {', '.join(unequal[:3])} ({len(unequal)} in all)")
+    if errors:
+        out.append(f"{len(errors)} ERROR records, first: {errors[0]}")
+    return out
+
+
+def _preempt_fns():
+    """The reference's sleeper and no-op, made here so that cloudpickle
+    sends them by value: a worker need not import this script."""
+    def sleeper(path, seconds):
+        # one line per execution: the at-most-once checks count these
+        with open(path, "a") as f:
+            f.write(f"{os.getpid()} {time.time()}\n")
+            f.flush()
+        time.sleep(seconds)
+        return "slept"
+
+    def noop():
+        return "ok"
+
+    return sleeper, noop
+
+
+def _executions(path) -> list:
+    """The start times (host clock) of a sleeper's executions."""
+    try:
+        with open(path) as f:
+            return [float(line.split()[1]) for line in f]
+    except FileNotFoundError:
+        return []
+
+
+def _value(rtt, ref, timeout: float):
+    try:
+        return rtt.get(ref, timeout=timeout)
+    except Exception as exc:  # noqa: BLE001 - an error is an outcome here
+        return exc
+
+
+def _preempt_retryable(c, rtt, d: str) -> dict:
+    """tests/test_preemption.py:62: two retryable sleepers pin a 2-CPU
+    node, a 2-CPU task starves, the head kills and requeues them."""
+    sleeper, noop = _preempt_fns()
+    sleep_s = PREEMPT_SLEEP_S["retryable"]
+    add_nodes(c, ({"CPU": 2.0}, dict(num_workers=3)))
+    paths = [os.path.join(d, f"victim{i}") for i in range(2)]
+    sleep_fn = rtt.remote(sleeper).options(num_cpus=1.0, max_retries=3)
+    victims = [sleep_fn.remote(p, sleep_s) for p in paths]
+    _wait_until(lambda: all(_executions(p) for p in paths), 60, "preemption (a): sleepers running")
+    t = time.monotonic()
+    big = _value(rtt, rtt.remote(noop).options(num_cpus=2.0, max_retries=0).remote(), 60)
+    big_s = time.monotonic() - t
+    values = [_value(rtt, r, 60) for r in victims]
+    return dict(sleep_s=sleep_s, big=big, big_s=big_s, victims=values,
+                runs=[len(_executions(p)) for p in paths])
+
+
+def _preempt_at_most_once(c, rtt, d: str) -> dict:
+    """tests/test_preemption.py:103: max_retries=0 sleepers hold the node;
+    the starving shape must wait for them."""
+    sleeper, noop = _preempt_fns()
+    sleep_s = PREEMPT_SLEEP_S["at-most-once"]
+    add_nodes(c, ({"CPU": 2.0}, dict(num_workers=3)))
+    paths = [os.path.join(d, f"amo{i}") for i in range(2)]
+    once_fn = rtt.remote(sleeper).options(num_cpus=1.0, max_retries=0)
+    victims = [once_fn.remote(p, sleep_s) for p in paths]
+    _wait_until(lambda: all(_executions(p) for p in paths), 60, "preemption (b): sleepers running")
+    t = time.monotonic()
+    big = _value(rtt, rtt.remote(noop).options(num_cpus=2.0, max_retries=0).remote(), 60)
+    big_s, done = time.monotonic() - t, time.time()
+    values = [_value(rtt, r, 30) for r in victims]
+    starts = [x for p in paths for x in _executions(p)]
+    return dict(sleep_s=sleep_s, big=big, big_s=big_s, victims=values,
+                runs=[len(_executions(p)) for p in paths],
+                after_s=done - (max(starts) + sleep_s))
+
+
+def _preempt_storm(c, rtt, d: str) -> dict:
+    """tests/test_preemption.py:184: retryable and at-most-once sleepers
+    on two nodes, two starving 2-CPU shapes, one node killed mid-storm."""
+    sleeper, noop = _preempt_fns()
+    sleep_s = PREEMPT_SLEEP_S["storm"]
+    _, n1 = add_nodes(c, *[({"CPU": 2.0}, dict(num_workers=3))] * 2)
+    retry_fn = rtt.remote(sleeper).options(num_cpus=1.0, max_retries=5)
+    once_fn = rtt.remote(sleeper).options(num_cpus=1.0, max_retries=0)
+    retry_paths = [os.path.join(d, f"r{i}") for i in range(3)]
+    once_paths = [os.path.join(d, f"o{i}") for i in range(3)]
+    retry_refs = [retry_fn.remote(p, sleep_s) for p in retry_paths]
+    once_refs = [once_fn.remote(p, sleep_s) for p in once_paths]
+    big = rtt.remote(noop).options(num_cpus=2.0, max_retries=1)
+    big_refs = [big.remote() for _ in range(2)]
+    time.sleep(2.0)  # the storm arms (starve rounds 2, about 1 Hz)
+    c.kill_node(n1)
+    bigs = [_value(rtt, r, 240) for r in big_refs]
+    onces = [_value(rtt, r, 240) for r in once_refs]
+    retries = [_value(rtt, r, 240) for r in retry_refs]
+    return dict(big=bigs, retry=retries,
+                lost=sum(v != "ok" for v in bigs) + sum(v != "slept" for v in retries),
+                once_runs=[len(_executions(p)) for p in once_paths],
+                unresolved=sum(not (v == "slept" or isinstance(v, Exception)) for v in onces))
+
+
+def phase_preemption(device: str = "cuda") -> dict:
+    """Executed preemption on the port, the head's rounds on ``device``:
+    ``tests/test_preemption.py``'s three cluster scenarios, each on a fresh
+    ``Cluster`` under its fixture's settings (``PREEMPT_ENV``) and its
+    sleeps (``PREEMPT_SLEEP_S``): (a) a starving 2-CPU shape preempts two
+    running retryable sleepers, (b) it never preempts ``max_retries=0``
+    sleepers, (c) a preemption storm over two nodes with one killed.
+    ``preemption_verdicts`` must hold: nominations and preemptions in (a)
+    and (c), no at-most-once kill, no acked object lost, every head and
+    ring round (the nomination rows too) equal on a CPU replay, no ERROR
+    record. Prints each scenario's counters and wall; returns the runs."""
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core.runtime import set_runtime
+
+    _platform_env(device)
+    os.environ.update(PREEMPT_ENV)
+    t0 = time.perf_counter()
+    errors = _RuntimeErrors()
+    records, impl, restore = _record_rounds()
+    ring_records, ring_impl, ring_restore = _record_ring_rounds()
+    runs, walls = {}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="ray_tpu_torch_preempt_") as tmp:
+            for name, scenario in (("retryable", _preempt_retryable),
+                                   ("at-most-once", _preempt_at_most_once),
+                                   ("storm", _preempt_storm)):
+                t1 = time.perf_counter()
+                d = os.path.join(tmp, name)
+                os.makedirs(d)
+                c = _cluster(device)
+                try:
+                    client = c.client()
+                    set_runtime(client)
+                    try:
+                        runs[name] = scenario(c, rtt, d)
+                    finally:
+                        set_runtime(None)
+                        client.shutdown()
+                    runs[name].update(nominations=c.head.metrics["preempt_nominations"],
+                                      preemptions=c.head.metrics["preemptions"],
+                                      rounds=c.head.metrics["sched_rounds"])
+                finally:
+                    c.shutdown()
+                walls[name] = time.perf_counter() - t1
+    finally:
+        restore()
+        ring_restore()
+        errors.close()
+        for k in PREEMPT_ENV:
+            os.environ.pop(k, None)
+    unequal = unequal_replays(records, impl, ring_records, ring_impl)
+    nominated = sum(pre is not None and bool((pre >= 0).any()) for *_, pre in records) \
+        + sum(bool((outs[3] >= 0).any()) for _, _, outs, _, _ in ring_records)
+    for name, run in runs.items():
+        shown = {k: v for k, v in run.items() if k not in ("nominations", "preemptions", "rounds")}
+        print(f"preemption ({name}) with the head on {device} [{card_line()}]: "
+              f"preempt_nominations {run['nominations']}, preemptions {run['preemptions']}, "
+              f"head sched_rounds {run['rounds']}; {shown}; wall {walls[name]:.1f} s")
+    print(f"preemption replay: {len(records)} head rounds and {len(ring_records)} ring rounds "
+          f"({nominated} with a nomination) replayed on the CPU, {len(unequal)} unequal")
+    failures = preemption_verdicts(runs, len(records) + len(ring_records), unequal,
+                                   errors.records)
+    check(not failures, f"preemption: {failures}")
+    print(f"preemption phase: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 # --- the dashboard and the state API, compiled DAGs and pipelines, and ---
@@ -6945,7 +7304,21 @@ def timed(fn, *args, **kwargs):
 
 
 # phases run in a child process beside the others: left out of the total
-BESIDE = ("chaos", "failover")
+BESIDE = ("chaos", "failover", "preemption", "rl_soak")
+
+
+def beside_failure(name: str, text: str, rc: int, tail_lines: int = 40) -> tuple:
+    """What the join of a failed child says: the end of its output, for
+    stderr (the output went to stdout, which a reader of the run's errors
+    may not see), and the FAIL message, which carries the child's own FAIL
+    line where it printed one."""
+    lines = text.splitlines()
+    said = [ln for ln in lines if ln.startswith("chip_smoke: FAIL:")]
+    shown = lines[-tail_lines:] + [ln for ln in said if ln not in lines[-tail_lines:]]
+    tail = f"--- the last lines of the {name} phase's process ---\n" + "\n".join(shown) + "\n"
+    why = (f" ({said[-1].removeprefix('chip_smoke: FAIL: ')})" if said
+           else " (it printed no FAIL line: see its last lines above)")
+    return tail, f"{name}: the phase's process exited with {rc}{why}"
 
 
 def start_beside(name: str, label: str = "", held: bool = False):
@@ -6955,7 +7328,7 @@ def start_beside(name: str, label: str = "", held: bool = False):
     keeps the wait for it as ``<name>_wait`` and the phase's own seconds
     (its "<label> phase: N s" line) as ``<name>``. With ``held`` the child
     starts (its imports) and then waits, idle, until the ``go`` returned
-    beside the join is called."""
+    beside the join is called. The join returns the child's output."""
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
@@ -6984,7 +7357,11 @@ def start_beside(name: str, label: str = "", held: bool = False):
         m = re.search(rf"^{label or name} phase: ([0-9.]+) s$", text, re.M)
         PHASE_S[name] = float(m.group(1)) if m else round(time.perf_counter() - t0, 1)
         shutil.rmtree(tmp, ignore_errors=True)
-        check(rc == 0 and m is not None, f"{name}: the phase's process exited with {rc}")
+        if rc != 0 or m is None:
+            tail, msg = beside_failure(name, text, rc)
+            sys.stderr.write(tail)
+            fail(msg)
+        return text
 
     return join, go
 
@@ -6992,6 +7369,12 @@ def start_beside(name: str, label: str = "", held: bool = False):
 def main() -> None:
     if sys.argv[1:] == ["--chaos"]:
         phase_chaos()
+        return
+    if sys.argv[1:] == ["--preemption"]:
+        phase_preemption()
+        return
+    if sys.argv[1:] == ["--rl_soak"]:
+        print(f"rl soak launches: {json.dumps(phase_rl_soak())}")
         return
     if sys.argv[1:2] == ["--failover"]:
         if sys.argv[2:]:  # held: start when the file appears
@@ -7022,8 +7405,7 @@ def main() -> None:
     join_chaos()
     # the failover soak needs no kernel and mostly waits: its process starts
     # (its imports) now and idles through the elastic gang's node kill and
-    # 2 s health timeout, then runs beside the phases up to the serving
-    # cluster's
+    # 2 s health timeout, then runs beside the phases up to the mixed fleet
     join_failover, go_failover = start_beside("failover", "failover soak", held=True)
     lib_launches = [trainer_run, timed(phase_elastic_train)]
     go_failover()
@@ -7032,11 +7414,16 @@ def main() -> None:
     wide_rows = timed(phase_wide_heads)
     llm = timed(phase_llm_engine)
     disagg = timed(phase_llm_disagg)
-    join_failover()
     serve_launches, chaos_launches = timed(phase_serving)
+    join_failover()
+    # the overload peak's controller ticks run on this process's host threads:
+    # the mixed fleet runs with no child beside it
     mixed_launches = timed(phase_mixed_fleet)
+    # the preemption scenarios need no kernel and mostly sleep, and the RL
+    # soak mostly waits out its faults: both run beside the phases after them
+    join_preemption, _ = start_beside("preemption")
     rl_launches = timed(phase_rl)
-    rl_soak = timed(phase_rl_soak)
+    join_rl_soak, _ = start_beside("rl_soak", "rl soak")
     timed(phase_rllib)
     data_launches = timed(phase_data)
     timed(phase_scheduler)
@@ -7048,6 +7435,9 @@ def main() -> None:
     timed(phase_standby)
     timed(phase_dag)
     timed(phase_device_xfer)
+    rl_soak = json.loads(re.search(r"^rl soak launches: (\{.*\})$", join_rl_soak(),
+                                   re.M).group(1))
+    join_preemption()
     timed(phase_processes)
     kernels = [
         dict(name="paged_attention_decode", route="cuda",

@@ -54,6 +54,7 @@ from ray_tpu_torch.scheduler.device import (
     SCHED_READBACK_MS,
     SCHED_UPLOAD_MS,
     DeviceSchedulerState,
+    StateReleased,
     bring_up_device_state,
     device_scheduler_default,
 )
@@ -69,7 +70,7 @@ from .common import (
     stream_item_id,
 )
 from .object_plane import PEER_CONN_GRANTED, PEER_CONN_REVOKED
-from .replication import ReplicationHub, set_role
+from .replication import ReplicationHub, frame_too_big, set_role
 from .rpc import RpcClient, RpcError, RpcNotLeaderError, RpcServer
 from .shards import ShardedTable
 
@@ -1243,13 +1244,18 @@ class HeadServer:
         self._repl.register_standby(
             req["standby_id"], req["address"], from_seq
         )
-        snap = self._snapshot_state()
-        return {
-            "snapshot": snap,
+        reply = {
+            "snapshot": self._snapshot_state(),
             "from_seq": from_seq,
             "epoch": self.cluster_epoch,
             "leader": self.address,
         }
+        if frame_too_big(reply):
+            # past one message: the shipper sends it in pieces as a
+            # re-sync, before any record
+            reply["snapshot"] = None
+            self._repl.resync_standby(req["standby_id"])
+        return reply
 
     def _h_head_role(self, req) -> dict:
         """Leadership probe (fence-exempt, served even while fenced):
@@ -3247,6 +3253,8 @@ class HeadServer:
                 self._try_schedule_pgs()
                 if batch:
                     deferred = bool(self._schedule_batch(batch))
+            except StateReleased:
+                return  # a stopped head's loop: nothing uploads again
             except Exception:  # pragma: no cover - scheduler must survive
                 logger.exception("scheduler round failed; requeueing")
                 with self._cond:
@@ -3280,6 +3288,8 @@ class HeadServer:
             self._last_park_retry = time.monotonic()
             try:
                 self._unpark_grantable()
+            except StateReleased:
+                pass  # a stopped head: the loop ends at its next check
             except Exception:  # noqa: BLE001 - reported as a failed round
                 # a device failure here is a failed round: logged, and the
                 # scheduler thread lives; the parked work stays parked (no
@@ -6449,16 +6459,22 @@ class HeadServer:
         self.release_device_state()
 
     def release_device_state(self) -> None:
-        """Frees the scheduler state's device memory once the scheduler
-        loop has seen ``_shutdown`` and ended (a head restart or a killed
-        in-process leader keeps the process, and the collector would reach
-        the old head's cycles only later). The host tables stay."""
+        """Frees the scheduler state's device memory (a head restart or a
+        killed in-process leader keeps the process, and the collector would
+        reach the old head's cycles only later). The host tables stay. The
+        scheduler loop has seen ``_shutdown`` and is given 5 s to end; the
+        release is final either way (``DeviceSchedulerState.release``), so
+        a round or handler still running on this head cannot upload
+        again."""
+        if self.device_state is None:
+            return
         sched = getattr(self, "_sched_thread", None)
-        if self.device_state is not None and sched is not None:
-            if sched.is_alive() and threading.current_thread() is not sched:
-                sched.join(timeout=5.0)
-            if not sched.is_alive():
-                self.device_state.release()
+        if sched is not None and sched.is_alive() and threading.current_thread() is not sched:
+            sched.join(timeout=5.0)
+            if sched.is_alive():
+                logger.warning("head %s: scheduler thread still running after 5 s; "
+                               "its state is released under it", self.address)
+        self.device_state.release()
 
 
 def main() -> None:  # pragma: no cover - exercised via subprocess in tests

@@ -20,6 +20,15 @@ A standby that answers ``{"fenced": epoch}`` has promoted: the hub
 routes that into the head's step-down path — the deposed leader fences
 itself off its own shipping stream, no external coordinator needed.
 
+Every batch the shipper sends crosses as its wire frame in pieces of at
+most ``PIECE_BYTES`` (``ReplWalPiece``), which the standby joins and
+applies as one ``ReplWal``; a bootstrap snapshot past it follows the
+hello as a re-sync. One creation payload (a deployment closure's
+weights) can outgrow the RPC message limit (``rpc._MAX_MSG``), and a
+barrier that never ships leaves the standby frozen behind it. The
+reference ships each batch as one message (``ray_tpu/cluster/head.py:668``
+snapshots the payloads whole).
+
 Port of ``ray_tpu/cluster/replication.py``, copied with its imports rewritten.
 """
 from __future__ import annotations
@@ -27,6 +36,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Any, Dict, List, Optional
 
@@ -65,6 +75,38 @@ FAILOVER_MS = _Histogram(
 )
 
 _ROLES = ("leader", "standby", "fenced")
+
+# the largest piece of a shipped batch's frame, well below rpc._MAX_MSG
+PIECE_BYTES = 64 << 20
+
+
+def frame_too_big(obj) -> bool:
+    """Whether ``obj``'s wire frame is longer than one piece."""
+    from . import serialization as wire
+
+    return len(wire.dumps(obj)) > PIECE_BYTES
+
+
+def ship_in_pieces(client, batch, timeout: float):
+    """Send a ``WalShipBatch`` as its frame in pieces of at most
+    ``PIECE_BYTES``; returns the standby's reply to the whole batch, or
+    its reply to the first piece it did not take (a fence, a gap)."""
+    from . import serialization as wire
+
+    blob = wire.dumps(batch)
+    count = max(1, -(-len(blob) // PIECE_BYTES))
+    xfer = uuid.uuid4().hex
+    reply = None
+    for i in range(count):
+        piece = blob if count == 1 else blob[i * PIECE_BYTES:(i + 1) * PIECE_BYTES]
+        reply = client.call(
+            "ReplWalPiece",
+            {"xfer": xfer, "index": i, "count": count, "data": piece},
+            timeout=timeout,
+        )
+        if i < count - 1 and reply != {"piece": i}:
+            return reply
+    return reply
 
 
 def set_role(role: str) -> None:
@@ -144,6 +186,7 @@ class ReplicationHub:
     def register_standby(
         self, standby_id: str, address: str, from_seq: int
     ) -> None:
+        """Ship to ``address`` from ``from_seq`` on."""
         with self._cv:
             if self._stopped:
                 return
@@ -159,6 +202,7 @@ class ReplicationHub:
                 "strikes": 0,
                 "client": None,
                 "last_sent": time.monotonic(),
+                "resync": False,
             }
             if self._thread is None:
                 self._thread = threading.Thread(
@@ -174,6 +218,15 @@ class ReplicationHub:
             address,
             from_seq,
         )
+
+    def resync_standby(self, standby_id: str) -> None:
+        """Ship ``standby_id`` a fresh snapshot before anything else (its
+        bootstrap snapshot was too big for the hello's reply)."""
+        with self._cv:
+            e = self._standbys.get(standby_id)
+            if e is not None:
+                e["resync"] = True
+                self._cv.notify_all()
 
     def wait_acked(self, seq: int, timeout: float) -> bool:
         """Acked shipping: block until every live standby applied
@@ -201,7 +254,8 @@ class ReplicationHub:
                 if self._stopped:
                     return
                 pending = any(
-                    e["acked"] < self.seq for e in self._standbys.values()
+                    e["acked"] < self.seq or e["resync"]
+                    for e in self._standbys.values()
                 )
                 if not self._standbys or not pending:
                     self._cv.wait(timeout=0.2)
@@ -292,10 +346,10 @@ class ReplicationHub:
                 if e is None or self._stopped:
                     return
                 acked = e["acked"]
-                if acked >= self.seq:
+                if acked >= self.seq and not e["resync"]:
                     return
                 ring_start = self._ring[0][0] if self._ring else self.seq + 1
-                behind_ring = acked + 1 < ring_start
+                behind_ring = acked + 1 < ring_start or e["resync"]
                 batch_cap = max(1, int(cfg.wal_ship_batch))
                 items = (
                     []
@@ -323,7 +377,7 @@ class ReplicationHub:
             if client is None:
                 return
             try:
-                reply = client.call("ReplWal", payload, timeout=10.0)
+                reply = ship_in_pieces(client, payload, timeout=10.0)
             except RpcError:
                 self._strike(sid)
                 return
@@ -389,7 +443,7 @@ class ReplicationHub:
         if client is None:
             return
         try:
-            reply = client.call("ReplWal", payload, timeout=30.0)
+            reply = ship_in_pieces(client, payload, timeout=30.0)
         except RpcError:
             self._strike(sid)
             return
@@ -400,11 +454,15 @@ class ReplicationHub:
                 leader_hint=reply.get("leader", ""),
             )
             return
+        if not (isinstance(reply, dict) and "applied_to" in reply):
+            self._strike(sid)  # a piece went missing: ship it anew later
+            return
         with self._cv:
             e = self._standbys.get(sid)
             if e is not None:
                 e["acked"] = max(e["acked"], from_seq)
                 e["strikes"] = 0
+                e["resync"] = False
                 self._cv.notify_all()
 
     def _strike(self, sid: str) -> None:

@@ -677,6 +677,12 @@ class RpcClient:
         if epoch is not None:
             payload = FencedPayload(int(epoch), payload)
         data = wire.dumps(payload)
+        if len(data) > _MAX_MSG:
+            # gRPC refuses it on the wire; no retry can help
+            raise RpcError(
+                f"rpc {method} to {self.address}: a {len(data)}-byte message "
+                f"is past the {_MAX_MSG}-byte limit"
+            )
         attempt = 0
         deadline = (
             None if deadline_s is None else time.monotonic() + deadline_s

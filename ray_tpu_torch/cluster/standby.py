@@ -91,6 +91,9 @@ class StandbyHead:
         self.applied_seq = 0
         self._expected = 1
         self._lock = threading.RLock()
+        # the pieces of the one framed batch in flight (ReplWalPiece)
+        self._xfer: Optional[str] = None
+        self._xfer_parts: List[bytes] = []
         self._shutdown = False
         self._leader_seen = time.monotonic()
         self._last_batch = time.monotonic()  # ship-stream silence clock
@@ -123,6 +126,7 @@ class StandbyHead:
         self._server = RpcServer(
             {
                 "ReplWal": self._h_repl_wal,
+                "ReplWalPiece": self._h_repl_wal_piece,
                 "HeadRole": self._h_head_role,
                 "QueryState": self._h_query_state,
                 "Ping": lambda r: "pong",
@@ -155,7 +159,10 @@ class StandbyHead:
         finally:
             client.close()
         with self._lock:
-            self._install_snapshot(reply["snapshot"])
+            if reply["snapshot"] is not None:
+                # else it was too big for one message: the leader ships
+                # it as a re-sync, in pieces, before any record
+                self._install_snapshot(reply["snapshot"])
             self.applied_seq = int(reply["from_seq"])
             self._expected = self.applied_seq + 1
             self.leader_epoch = int(reply.get("epoch", 0))
@@ -218,6 +225,25 @@ class StandbyHead:
         self.metrics["snapshots_installed"] += 1
 
     # -- live replay -----------------------------------------------------
+    def _h_repl_wal_piece(self, req: dict) -> dict:
+        """One piece of a batch's wire frame (``replication.ship_in_pieces``).
+        The last piece's reply is the batch's; a piece out of order drops
+        the batch, and the leader ships it anew."""
+        from . import serialization as wire
+
+        with self._lock:
+            if req["xfer"] != self._xfer:
+                self._xfer, self._xfer_parts = req["xfer"], []
+            if int(req["index"]) != len(self._xfer_parts):
+                self._xfer, self._xfer_parts = None, []
+                return {"piece_gap": int(req["index"])}
+            self._xfer_parts.append(bytes(req["data"]))
+            if len(self._xfer_parts) < int(req["count"]):
+                return {"piece": int(req["index"])}
+            blob = b"".join(self._xfer_parts)
+            self._xfer, self._xfer_parts = None, []
+        return self._h_repl_wal(wire.loads(blob))
+
     def _h_repl_wal(self, batch) -> dict:
         with self._lock:
             if self.promoted is not None:

@@ -132,6 +132,7 @@ class Worker:
         # one deserialized fn per fn_id (see _fn_from_blob)
         self._fn_cache: Dict[str, Any] = {}
         self._fn_cache_order: deque = deque()
+        self._fn_load_lock = threading.RLock()
         # streaming-generator announcements, flushed with direct seals
         self._stream_reports: list = []
         self._stream_done_reports: list = []
@@ -556,13 +557,21 @@ class Worker:
         was the executor-side half of that cost. Not cached when the
         client marked it uncacheable (closure over ObjectRefs: per-call
         deserialization keeps ref lifetimes per-execution). Small LRU —
-        eviction drops the fn and any refs it holds."""
+        eviction drops the fn and any refs it holds.
+
+        One blob loads at a time: a load imports the function's modules,
+        and two threads importing a package and its submodule from either
+        end raise ``_DeadlockError`` in one of them (the reference's
+        worker loads concurrently; seen as a failed shuffle task).
+        """
         if not cacheable or not fn_id:
-            return cloudpickle.loads(blob)
+            with self._fn_load_lock:
+                return cloudpickle.loads(blob)
         cache = self._fn_cache
         fn = cache.get(fn_id)
         if fn is None:
-            fn = cloudpickle.loads(blob)
+            with self._fn_load_lock:
+                fn = cloudpickle.loads(blob)
             cache[fn_id] = fn
             self._fn_cache_order.append(fn_id)
             if len(self._fn_cache_order) > 64:

@@ -57,6 +57,7 @@ from ..scheduler import (
     ResourceVocab,
     hybrid_schedule_reference,
 )
+from ..scheduler.device import StateReleased
 from .object_store import GetTimeoutError, ObjectRef, ObjectStore, TaskError
 
 logger = logging.getLogger("ray_tpu_torch")
@@ -513,6 +514,8 @@ class Runtime:
                 self._try_schedule_pgs()
                 if batch:
                     self._schedule_batch(batch)
+            except StateReleased:
+                return  # shut down under a round
             except Exception:  # pragma: no cover - scheduler must survive
                 logger.exception("scheduler round failed; requeueing batch")
                 with self._cond:
@@ -557,6 +560,8 @@ class Runtime:
             self._last_park_retry = _now()
             try:
                 self._unpark_grantable()
+            except StateReleased:
+                pass  # shut down: the loop ends at its next check
             except Exception:  # noqa: BLE001 - reported as a failed round
                 # as a failing round is: logged, and the scheduler thread
                 # lives; the parked work stays parked
@@ -1193,6 +1198,10 @@ class Runtime:
         for node in self.nodes.values():
             node.pool.shutdown(wait=False, cancel_futures=True)
         self._sched_thread.join(timeout=2)
+        if self.device_state is not None:
+            # free the card now, not when the collector reaches this
+            # runtime's cycles; final, as a stopped head's is
+            self.device_state.release()
         if self.native_store is not None:
             self.native_store.close(unlink=True)
 

@@ -254,6 +254,12 @@ class PendingRound:
         return t[: self._b].numpy().copy()
 
 
+class StateReleased(RuntimeError):
+    """A round, sync or ring round asked of a released
+    :class:`DeviceSchedulerState`: its owner stopped (a shut-down runtime,
+    a stopped or killed head), and nothing uploads to it again."""
+
+
 class DeviceSchedulerState:
     """Resident mirror of a ClusterView on one torch device + the
     scheduling round.
@@ -293,6 +299,7 @@ class DeviceSchedulerState:
         self._synced_topo = -1
         self._seed = 0
         self._lock = threading.Lock()
+        self._released = False
         # delta-sync / round accounting, surfaced via QueryState("sched")
         self.stats: Dict[str, int] = {
             "full_syncs": 0,
@@ -318,6 +325,7 @@ class DeviceSchedulerState:
         """Bring the device mirror up to date. Caller holds the view lock."""
         t0 = time.perf_counter()
         with self._lock:
+            self._check_live()
             if view.topo_version != self._synced_topo:
                 self._full_sync(view)
             elif view.dirty_rows:
@@ -389,12 +397,25 @@ class DeviceSchedulerState:
         """Drop every resident tensor (the view's mirror, node types,
         throughput factors, the ring's rows), so a stopped head frees its
         device memory when it stops, not when the garbage collector reaches
-        its cycles. A later ``sync`` uploads afresh."""
+        its cycles. The release is final: every later sync, round, ring
+        round or slot estimate raises :class:`StateReleased`, so a handler
+        still running on a stopped owner cannot upload again. A round in
+        flight holds the lock, and its result is dropped with the rest."""
         with self._lock:
+            self._released = True
             self._totals = self._avail = self._alive = None
             self._ntypes = self._thr = None
-            self._ring_dev = None  # the next flush uploads every host row
+            self._ring_dev = None
             self._synced_topo = -1
+
+    @property
+    def released(self) -> bool:
+        return self._released
+
+    def _check_live(self) -> None:
+        """Raises once released; under ``_lock`` where it guards an upload."""
+        if self._released:
+            raise StateReleased("scheduler state released: its owner has stopped")
 
     def resident_bytes(self) -> int:
         """Bytes of the device tensors this state holds now."""
@@ -436,6 +457,7 @@ class DeviceSchedulerState:
         from ..config import cfg
         from .hybrid import dedupe_shapes, hybrid_schedule_shapes_multi_impl
 
+        self._check_live()
         r = self._totals.shape[1]
         if shapes is not None:
             shape_demands, shape_ids = shapes
@@ -474,6 +496,7 @@ class DeviceSchedulerState:
             loc_dev = _upload(loc, dev)
         SCHED_UPLOAD_MS.observe((time.perf_counter() - t_up) * 1e3)
         with self._lock:
+            self._check_live()
             self._seed += 1
             self.stats["rounds"] += 1
             res = hybrid_schedule_shapes_multi_impl(
@@ -616,6 +639,7 @@ class DeviceSchedulerState:
             weights = score_weights_from_cfg()
         preempt = bool(cfg.sched_preempt) and ages_by_slot is not None
         with self._lock:
+            self._check_live()
             self._ring_flush_locked()
             counts_dev = _upload(counts, self.device)
             ages_dev = _upload(ages, self.device)
@@ -656,6 +680,7 @@ class DeviceSchedulerState:
 
         mat = np.ascontiguousarray(shapes, dtype=np.float32)
         with self._lock:
+            self._check_live()
             res = shape_slots_impl(
                 self._totals,
                 self._avail,

@@ -24,6 +24,13 @@ timeout storms. Three gates compose, checked in order:
 
 Every shed increments ``serve_shed_total{reason}`` and the router maps
 it to ``serve_requests_total{code="503"}``.
+
+A parked arrival sleeps until the pump grants it (which wakes it alone)
+or its deadline; it polls every 50 ms only while a rate-limited bucket
+may be what holds it. The reference's waiters all poll every 50 ms, and
+under overload (a hundred and more parked) they starve every other
+thread of the process: the router's pressure export and the in-process
+head's elasticity ticks ran seconds late (Queue C 25 of the port).
 """
 from __future__ import annotations
 
@@ -121,9 +128,9 @@ class Ticket:
 
 
 class _Waiter:
-    __slots__ = ("tenant", "vft", "seq", "granted", "abandoned", "cost")
+    __slots__ = ("tenant", "vft", "seq", "granted", "abandoned", "cost", "wake")
 
-    def __init__(self, tenant: str, vft: float, seq: int, cost: int = 0):
+    def __init__(self, tenant: str, vft: float, seq: int, wake, cost: int = 0):
         self.tenant = tenant
         self.vft = vft  # WFQ virtual finish time
         self.seq = seq
@@ -132,6 +139,9 @@ class _Waiter:
         # approximate prefill cost (prompt tokens): aggregated per
         # tenant into the scheduler-facing demand pressure export
         self.cost = int(cost)
+        # this waiter's own condition on the controller's lock: a grant
+        # wakes the granted waiter only
+        self.wake = wake
 
 
 class AdmissionController:
@@ -151,7 +161,8 @@ class AdmissionController:
         self.wait_cap = max(0, int(wait_cap))
         self.wait_timeout_s = float(wait_timeout_s)
         self._weights = dict(tenant_weights or {})
-        self._cv = threading.Condition()
+        self._mu = threading.RLock()
+        self._cv = threading.Condition(self._mu)
         self._inflight = 0
         self._queues: Dict[str, deque] = {}
         self._waiting = 0
@@ -161,6 +172,7 @@ class AdmissionController:
         self._seq = itertools.count()
         self.sheds = 0
         self.admitted = 0
+        self.wakeups = 0  # parked waiters woken and not (yet) granted
         # fleet-shard state (router fleet): per-tenant admits since the
         # last reconcile drain, plus the head's last global-budget word
         # (is there cluster-wide headroom, and how soon does the next
@@ -213,8 +225,12 @@ class AdmissionController:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
                         return self._shed_locked("timeout", waiter)
-                    # wake early enough to re-check the refilling bucket
-                    self._cv.wait(timeout=min(remaining, 0.05))
+                    if self._bucket.rate > 0:
+                        # no event marks the bucket's refill: re-check it
+                        remaining = min(remaining, 0.05)
+                    waiter.wake.wait(timeout=remaining)
+                    if not waiter.granted:
+                        self.wakeups += 1
             except BaseException:
                 self._abandon_locked(waiter)
                 raise
@@ -242,7 +258,8 @@ class AdmissionController:
 
     def _park_locked(self, tenant: str, cost: int = 0) -> _Waiter:
         waiter = _Waiter(
-            tenant, self._account_locked(tenant), next(self._seq), cost
+            tenant, self._account_locked(tenant), next(self._seq),
+            threading.Condition(self._mu), cost,
         )
         self._queues.setdefault(tenant, deque()).append(waiter)
         self._waiting += 1
@@ -278,7 +295,7 @@ class AdmissionController:
             self._vtime = max(self._vtime, head.vft)
             head.granted = True
             self._granted_pending += 1
-            self._cv.notify_all()
+            head.wake.notify()
 
     def _shed_locked(self, reason: str, waiter: Optional[_Waiter] = None):
         if waiter is not None:
@@ -325,7 +342,6 @@ class AdmissionController:
             self._inflight = max(0, self._inflight - 1)
             SERVE_QUEUE_DEPTH.set(self._inflight)
             self._pump_locked()
-            self._cv.notify_all()
 
     # -- fleet sharding (router fleet budget reconciliation) -----------
     def set_rate(self, rate: float, burst: Optional[float] = None) -> None:
@@ -340,7 +356,6 @@ class AdmissionController:
                 bucket.burst = max(1.0, float(burst))
             bucket._tokens = min(bucket._tokens, bucket.burst)
             self._pump_locked()
-            self._cv.notify_all()
 
     def note_global_budget(
         self, headroom: bool, reconcile_window_s: float
@@ -402,6 +417,7 @@ class AdmissionController:
                 "waiting": self._waiting,
                 "admitted": self.admitted,
                 "sheds": self.sheds,
+                "wakeups": self.wakeups,
                 "max_inflight": self.max_inflight,
                 "qps_limit": self._bucket.rate,
             }

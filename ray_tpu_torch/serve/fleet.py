@@ -488,14 +488,16 @@ class FleetStream:
         self._flushed = 0  # delivered count last checkpointed
         self._released = False
         self._rid, router = fleet._owner(tenant)
+        self._leased = False
+        self._routed = router.stream(payload, tenant)
+        # the lease comes after admission: a request the router sheds
+        # (Overloaded) never reaches the head. The reference leases
+        # first, so under overload every shed request cost the head an
+        # acquire and a release (Queue C 25 of the port). A router lost
+        # before the lease lands resumes from the consumer's count.
         self._leased = fleet.resumable
         if self._leased:
             fleet._stream_acquire(self, self._rid, 0)
-        try:
-            self._routed = router.stream(payload, tenant)
-        except BaseException:
-            self._release()
-            raise
         fleet._track(self)
 
     # -- consumption ----------------------------------------------------

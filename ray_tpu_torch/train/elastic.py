@@ -107,6 +107,9 @@ HEAD_CHECK_S = 1.0
 
 # the reason a rank gives when a call to its gang's hub failed
 HUB_UNREACHABLE = "hub unreachable"
+# how long a voluntary reshape (a grow or a cede: no rank died) waits for
+# the torn-down generation's leases to reach the head's view of capacity
+RESHAPE_SETTLE_S = 5.0
 
 
 class GangEpochRevoked(RuntimeError):
@@ -1889,6 +1892,17 @@ class ElasticTrainer:
             cap = self.elastic.world_for(
                 self._placeable_ranks(exclude_nodes=self._avoid_now())
             )
+            if not dead_nodes:
+                # no rank died: the nodes the old generation held read as
+                # busy until their agents report the returned leases, and
+                # a grow decided on that view re-forms at the old world on
+                # the new node alone ("flat"; the reference decides at once)
+                settle = time.monotonic() + RESHAPE_SETTLE_S
+                while 0 < cap < target and time.monotonic() < settle:
+                    time.sleep(0.2)
+                    cap = self.elastic.world_for(
+                        self._placeable_ranks(exclude_nodes=self._avoid_now())
+                    )
             next_world = target
             if 0 < cap < target:
                 next_world = max(

@@ -112,43 +112,62 @@ def test_failover_verdicts_name_each_fault(smoke, fault, words):
 # ---------------------------------------------------------------------------
 # mixed fleet
 # ---------------------------------------------------------------------------
-def _timeline(peak_worlds, peak_hints, trough_b=(2, 2, 2, 2)):
+def _timeline(peak_worlds, peak_hints, trough_b=(2, 2, 2, 2), parked=9):
     out = [("trough A", 2, 2, 0)] * 6
-    out += [("peak", w, h, 9) for w, h in zip(peak_worlds, peak_hints)]
+    out += [("peak", w, h, parked) for w, h in zip(peak_worlds, peak_hints)]
     out += [("trough B", w, 2, 0) for w in trough_b]
     return out
 
 
+CEDE_AND_GROW = [("cede", 2, 1, "peak"), ("grow", 1, 2, "trough B")]
+
+
 def _mixed_run(**over):
-    run = dict(timeline=_timeline((2, 2, 2), (2, 2, 2)), reshapes=[], disk_restores=0,
-               errored=0, launches=[1200, 1100])
+    """A run that takes the cede path: requests park at the peak, the
+    controller hints 1, the gang cedes there and grows back in trough B."""
+    run = dict(timeline=_timeline((2, 1, 1, 1), (2, 1, 1, 1)), reshapes=CEDE_AND_GROW,
+               disk_restores=0, errored=0, launches=[1200, 1100])
     run.update(over)
     return run
 
 
 @pytest.mark.parametrize("run", [
     _mixed_run(),
-    _mixed_run(timeline=_timeline((2, 1, 1, 2), (2, 1, 1, 2)),
-               reshapes=[("cede", 2, 1), ("grow", 1, 2)]),
-], ids=["no pressure, no cede", "a cede the controller ordered, then the grow"])
+    _mixed_run(timeline=_timeline((2, 2, 1, 1), (1, 1, 1, 2))),
+], ids=["a cede the controller ordered, then the grow", "a cede that took a tick"])
 def test_mixed_fleet_verdicts_pass(smoke, run):
     assert smoke.mixed_fleet_verdicts(**run) == []
 
 
 @pytest.mark.parametrize("run, words", [
-    (_mixed_run(timeline=_timeline((2, 2), (1, 1))), "the gang held 2"),
+    (_mixed_run(timeline=_timeline((2, 2, 2), (2, 2, 2), parked=0), reshapes=[]),
+     "no request parked at the peak"),
+    (_mixed_run(timeline=_timeline((2, 2), (1, 1)), reshapes=[]), "the gang held 2"),
+    (_mixed_run(timeline=_timeline((2, 2), (1, 1)), reshapes=[]), "no cede reshape at the peak"),
+    (_mixed_run(reshapes=[("cede", 2, 1, "trough B"), ("grow", 1, 2, "trough B")]),
+     "no cede reshape at the peak"),
     (_mixed_run(timeline=_timeline((2, 1), (2, 2))), "no hint below 2"),
-    (_mixed_run(timeline=_timeline((2, 2), (2, 2), trough_b=(2, 1, 1, 1, 1))), "trough B"),
-    (_mixed_run(timeline=[("trough A", 1, 2, 0)] + _timeline((2,), (2,))[6:]), "trough A"),
-    (_mixed_run(reshapes=[("shrink", 2, 1)]), "other than cede and grow"),
+    (_mixed_run(timeline=_timeline((2, 1), (1, 1), trough_b=(2, 1, 1, 1, 1))), "trough B"),
+    (_mixed_run(timeline=[("trough A", 1, 2, 0)] + _timeline((2, 1), (1, 1))[6:]), "trough A"),
+    (_mixed_run(reshapes=CEDE_AND_GROW + [("shrink", 2, 1, "trough B")]),
+     "other than cede and grow"),
     (_mixed_run(disk_restores=1), "disk restores"),
     (_mixed_run(errored=2), "errored requests"),
     (_mixed_run(launches=[1200, 0]), "paged launches"),
-], ids=["hint ignored", "cede unordered", "no grow-back", "trough A short", "shrink",
-        "disk restore", "errors", "a replica without launches"])
+], ids=["no pressure, no cede", "hint ignored", "no cede reshape", "a cede after the peak",
+        "cede unordered", "no grow-back", "trough A short", "shrink", "disk restore", "errors",
+        "a replica without launches"])
 def test_mixed_fleet_verdicts_name_each_fault(smoke, run, words):
     failures = smoke.mixed_fleet_verdicts(**run)
     assert any(words in f for f in failures), failures
+
+
+def test_mixed_fleet_sheds_are_not_errors(smoke):
+    """A request shed with ``Overloaded`` (None) counts apart from an
+    errored one (an exception, or -1 from the request's thread)."""
+    results = [8, 8, None, None, None, 8, -1, RuntimeError("boom"), 3]
+    assert smoke.request_outcomes(results, max_new=8) == (3, 3, 2)
+    assert smoke.request_outcomes([8, None, None], max_new=8) == (1, 2, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -203,3 +222,26 @@ def _rl_skipped():
 def test_rl_soak_verdicts_name_each_fault(smoke, make, words):
     failures = smoke.rl_soak_verdicts(**make())
     assert any(words in f for f in failures), failures
+
+
+# ---------------------------------------------------------------------------
+# a failed child phase (--chaos, --failover, --preemption, --rl_soak)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("said, rc, words", [
+    (True, 1, "chaos: the phase's process exited with 1 (chaos seed 20260803: invariants"),
+    (False, 1, "exited with 1 (it printed no FAIL line"),
+    (False, 0, "exited with 0 (it printed no FAIL line"),
+], ids=["its own FAIL line", "a traceback", "no phase line"])
+def test_a_failed_child_says_why_on_stderr(smoke, said, rc, words):
+    lines = [f"chaos #{i} zygote_kill: 1.000 s" for i in range(60)]
+    if said:
+        lines.insert(10, "chip_smoke: FAIL: chaos seed 20260803: invariants failed: ['x']")
+    else:
+        lines += ["Traceback (most recent call last):", "RuntimeError: boom"]
+    tail, msg = smoke.beside_failure("chaos", "\n".join(lines) + "\n", rc)
+    assert words in msg, msg
+    shown = tail.splitlines()
+    assert shown[0] == "--- the last lines of the chaos phase's process ---"
+    assert shown[1:41] == lines[-40:]
+    # the child's FAIL line is shown even when it came long before the end
+    assert ("chip_smoke: FAIL: chaos seed 20260803: invariants failed: ['x']" in shown) == said

@@ -351,6 +351,37 @@ def test_dp_shrink_grow_preserves_params_bit_exact(rt):
     assert np.array_equal(state["opt"]["m"], np.full(32, float(total)))
 
 
+def test_grow_waits_for_the_old_generations_capacity(rt, monkeypatch):
+    """A grow re-forms the gang after tearing the old generation down, and
+    the nodes it held read as busy until their agents report the returned
+    leases. Here the first capacity read after the grow request misses
+    one node: the reshape reads again and grows to 2. Deciding on the
+    first read (as the reference does) re-forms at world 1, a "flat"
+    reshape: the chip smoke's elastic phase saw [shrink, flat, grow]."""
+    from ray_tpu_torch.train import elastic as el
+
+    real = el.ElasticTrainer._placeable_ranks
+    stale = [0]
+
+    def lagging(self, exclude_nodes=()):
+        n = real(self, exclude_nodes)
+        if stale[0]:
+            stale[0] -= 1
+            return min(n, 1)
+        return n
+
+    def shrunk(t):
+        if any(r["direction"] == "shrink" for r in t.reshape_log):
+            stale[0] = 1
+            return True
+        return False
+
+    monkeypatch.setattr(el.ElasticTrainer, "_placeable_ranks", lagging)
+    trainer, res = _fit_elastic(total_steps=24, resizes=((4, 1), (shrunk, 2)), step_sleep=0.15)
+    assert [r["direction"] for r in trainer.reshape_log] == ["shrink", "grow"]
+    assert [m["step"] for m in res.metrics_history] == list(range(24))
+
+
 # ---------------------------------------------------------------------------
 # head gang membership protocol
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ Every wait has a deadline, every ``get`` a timeout.
 import pickle
 import time
 
+import numpy as np
 import pytest
 
 import ray_tpu_torch
@@ -653,6 +654,63 @@ def test_equal_creation_payloads_are_snapshotted_once(tmp_path):
         h._shutdown = True
         h._repl.stop()
         h._server.stop()
+
+def test_a_payload_past_the_message_limit_ships_in_pieces(tmp_path, monkeypatch):
+    """Queue C 23: one creation payload past the RPC message limit made a
+    snapshot (and a WAL record) that could never ship, and the standby
+    froze behind it. The leader now ships every batch's frame in pieces
+    of at most ``replication.PIECE_BYTES`` and a bootstrap snapshot past
+    it as a re-sync. Here the limit (``rpc._MAX_MSG``) is lowered to
+    256 KiB and the piece size to 64 KiB, so 512 KiB payloads show the
+    fault: one before the standby's hello, one after it (its WAL record
+    and the next snapshot barrier)."""
+    from ray_tpu_torch.cluster import replication, rpc
+    from ray_tpu_torch.cluster.common import LeaseRequest
+    from ray_tpu_torch.cluster.standby import StandbyHead
+
+    monkeypatch.setattr(rpc, "_MAX_MSG", 256 << 10)
+    monkeypatch.setattr(replication, "PIECE_BYTES", 64 << 10)
+    to_standby = []  # frame bytes of every message sent to the standby
+    real_call = rpc.RpcClient.call
+
+    def call(self, method, payload=None, *args, **kwargs):
+        if sb is not None and self.address == sb.address:
+            to_standby.append(len(rpc.wire.dumps(payload)))
+        return real_call(self, method, payload, *args, **kwargs)
+
+    monkeypatch.setattr(rpc.RpcClient, "call", call)
+
+    def create(h, i, payload):
+        spec = LeaseRequest(task_id=f"t{i}", name="Replica", payload=payload, return_ids=[],
+                            resources={"CPU": 1.0}, kind="actor_creation", actor_id=f"a{i}")
+        h._h_create_actor({"spec": spec, "class_name": "Replica"})
+
+    rng = np.random.default_rng(23)
+    first = rng.integers(0, 256, 512 << 10, dtype=np.uint8).tobytes()
+    second = rng.integers(0, 256, 512 << 10, dtype=np.uint8).tobytes()
+    h = _mk_head(tmp_path)
+    sb = None
+    try:
+        create(h, 0, first)
+        h._persist_now()
+        sb = StandbyHead(h.address, persist_path=str(tmp_path / "state.pkl"),
+                         auto_promote=False)
+        assert _wait(lambda: sb._actor_specs.get("a0") is not None), "bootstrap never shipped"
+        create(h, 1, second)
+        h._persist_now()
+        assert _wait(lambda: sb.applied_seq >= h._repl.seq), (sb.applied_seq, h._repl.seq)
+        assert sb._actor_specs["a0"].payload == first
+        assert sb._actor_specs["a1"].payload == second
+        assert _normalize(sb.tables_snapshot()) == _normalize(h._snapshot_state())
+        assert sb.metrics["snapshots_installed"] >= 2  # the re-sync and a barrier
+        assert to_standby and max(to_standby) <= rpc._MAX_MSG
+    finally:
+        if sb is not None:
+            sb.shutdown()
+        h._shutdown = True
+        h._repl.stop()
+        h._server.stop()
+
 
 def _resident_sched_states():
     import gc

@@ -82,6 +82,47 @@ def test_schedule_and_delta_sync():
     assert st.schedule(np.stack([d])).tolist() == [-1]
 
 
+def test_a_released_state_never_uploads_again():
+    """Queue C 22: a stopped owner's state is released for good. A sync,
+    round, ring round or slot estimate that a handler still running on the
+    stopped owner asks for raises ``StateReleased`` and uploads nothing,
+    so the state stays at 0 resident bytes."""
+    vocab, view = make_view(2, cpu=4.0)
+    st = cpu_state()
+    st.sync(view)
+    d = dense(vocab, view, {"CPU": 4.0})
+    assert st.ring_park(("cpu4",), d)
+    st.ring_schedule({0: 1})
+    assert st.resident_bytes() > 0
+    st.release()
+    assert st.released and st.resident_bytes() == 0
+    view.update_available("node0", {"CPU": 2.0, "memory": 64.0})
+    for ask in (lambda: st.sync(view), lambda: st.schedule(np.stack([d])),
+                lambda: st.ring_schedule({0: 1}), lambda: st.shape_slots(np.stack([d]))):
+        with pytest.raises(TD.StateReleased):
+            ask()
+        assert st.resident_bytes() == 0
+
+
+def test_runtime_shutdown_releases_its_state(monkeypatch):
+    """A shut-down local runtime frees its scheduler state at shutdown,
+    not when the collector reaches the runtime's cycles (Queue C 22: a
+    state left for the collector made a process-wide count of resident
+    states see one more than the live head's)."""
+    import ray_tpu_torch
+
+    monkeypatch.setenv("RAY_TPU_SCHED_PLATFORM", "cpu")
+    rt = ray_tpu_torch.init(num_nodes=1, resources_per_node={"CPU": 2})
+    try:
+        f = ray_tpu_torch.remote(lambda x: x + 1)
+        assert ray_tpu_torch.get(f.remote(1), timeout=60) == 2
+        state = rt.device_state
+        assert state.resident_bytes() > 0
+    finally:
+        ray_tpu_torch.shutdown()
+    assert state.released and state.resident_bytes() == 0
+
+
 def test_full_resync_on_topology_change():
     vocab, view = make_view(1, cpu=2.0)
     st = cpu_state()

@@ -119,3 +119,43 @@ def test_busy_node_stays_while_demand_overflows_to_new_nodes():
     assert ref.provision == port.provision == 2
     assert ref.retire == ["n0"]  # the reference's churn
     assert port.retire == [] and port.migrate == []
+
+
+def _mixed_fleet_peak(mod, parked):
+    """The mixed fleet's controller snapshot at its peak on the card: two
+    agents of 4 CPUs and a GPU (the two replicas on a quarter GPU each),
+    the 2-rank gang of 1 CPU a rank SPREAD over them, ``parked`` requests
+    in the router's waiting room."""
+    totals = np.array([[4.0, 1.0], [4.0, 1.0]], dtype=np.float32)
+    avail = np.array([[3.0, 0.75], [3.0, 0.75]], dtype=np.float32)
+    gang = mod.GangWant(gang_id="gang", current=2, want=2, min_size=1,
+                        row=np.array([1.0, 0.0], dtype=np.float32),
+                        members_by_node={"n0": 1, "n1": 1})
+    return mod.ElasticSnapshot(
+        width=2, avail=avail, totals=totals, alive=np.ones(2, dtype=bool),
+        node_ids=["n0", "n1"],
+        serve_pressure={"mix-llm": {"default": {"waiting": parked, "waiting_tokens": 0}}},
+        gang_wants=[gang])
+
+
+def _plan(mod, snap):
+    avail = mod.credit_gang_usage(snap.avail, snap.node_ids, snap.gang_wants)
+    matrix = mod.assemble_demand(snap)
+    kw = {"device": "cpu"} if mod is TE else {}
+    solved = mod.solve_demand(avail, matrix, **kw)
+    return mod.build_plan(snap, matrix, solved, retire_max=0, provision_max=0, **kw)
+
+
+@pytest.mark.parametrize("parked, hint", [(0, 2), (16, 2), (74, 1), (124, 1)])
+def test_parked_serve_demand_outbids_the_gang(parked, hint):
+    """Queue C 24-25: on the card the mixed fleet's peak parked 124
+    requests and the controller still hinted world 2. Not the controller:
+    on that snapshot it cedes, the port as the reference (a serve row a
+    queue of 8 outbids the gang's seats once they no longer fit beside
+    it); the ticks came too late (the waiting room's polling starved the
+    client process, Queue C 25)."""
+    got = _plan(TE, _mixed_fleet_peak(TE, parked))
+    want = _plan(JE, _mixed_fleet_peak(JE, parked))
+    assert got.world_hints == want.world_hints == {"gang": hint}
+    assert got.serve_hints == want.serve_hints
+    assert got.unfulfilled == want.unfulfilled

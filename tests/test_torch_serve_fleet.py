@@ -409,6 +409,57 @@ def test_fleet_stream_failover_token_exact_with_skip_window(monkeypatch):
         fleet.close()
 
 
+class _SheddingRouter(_StubRouter):
+    """A router whose admission sheds every request."""
+
+    def stream(self, payload, tenant, resume_base=0):
+        from ray_tpu_torch.serve.admission import Overloaded
+
+        raise Overloaded("queue_full")
+
+
+def test_a_shed_stream_takes_no_lease(monkeypatch):
+    """Queue C 25: a stream lease is taken after admission, so a request
+    the router sheds never reaches the head (the reference leases first:
+    under 2x overload every shed request cost the in-process head an
+    acquire and a release). An admitted stream still takes its lease and
+    releases it at its end."""
+    from ray_tpu_torch.serve.admission import Overloaded
+
+    fleet = _make_fleet(monkeypatch, "shed", 1, resumable=True,
+                        RAY_TPU_SERVE_BUDGET_RECONCILE_S="30")
+    try:
+        calls = []
+        coord = fleet._coord
+        acquire, release = coord.stream_acquire, coord.stream_release
+
+        def counted_acquire(*args, **kwargs):
+            calls.append("acquire")
+            return acquire(*args, **kwargs)
+
+        def counted_release(ids):
+            calls.append("release")
+            return release(ids)
+
+        monkeypatch.setattr(coord, "stream_acquire", counted_acquire)
+        monkeypatch.setattr(coord, "stream_release", counted_release)
+        with fleet._lock:
+            fleet.routers["shed/r0"] = _SheddingRouter("shed/r0")
+        for _ in range(5):
+            with pytest.raises(Overloaded):
+                fleet.stream({"n": 3}, "t")
+        assert calls == [] and fleet._streams == {}
+        with fleet._lock:
+            fleet.routers["shed/r0"] = _StubRouter("shed/r0", total=3)
+        stream = fleet.stream({"n": 3}, "t")
+        assert fleet._coord.stream_lookup(stream.stream_id) is not None
+        assert list(stream) == ["tok0", "tok1", "tok2"]
+        assert calls == ["acquire", "release"]
+        assert fleet._coord.stream_lookup(stream.stream_id) is None
+    finally:
+        fleet.close()
+
+
 def test_fleet_cross_router_wfq_ratio(monkeypatch):
     """Cluster-wide weighted fairness: a weight-3 tenant and a weight-1
     tenant pinned to DIFFERENT routers drain ~3:1 once the reconcile

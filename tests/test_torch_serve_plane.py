@@ -97,6 +97,97 @@ def test_relay_fallback_bounded_and_cancellable():
 # ---------------------------------------------------------------------------
 # SLO autoscaler (in-process runtime)
 # ---------------------------------------------------------------------------
+def _grant_order(cls, arrivals=40, idle_s=1.0):
+    """Park ``arrivals`` requests of two tenants behind one held slot of a
+    ``cls`` admission controller, leave them idle ``idle_s``, then release:
+    (the order they were admitted in, the controller)."""
+    import threading
+
+    adm = cls(max_inflight=1, wait_cap=64, wait_timeout_s=10.0)
+    held = adm.admit("a")
+    order, lock, threads = [], threading.Lock(), []
+
+    def arrive(i):
+        ticket = adm.admit("ab"[i % 2])
+        with lock:
+            order.append(i)
+        time.sleep(0.005)
+        ticket.done()
+
+    for i in range(arrivals):
+        threads.append(threading.Thread(target=arrive, args=(i,)))
+        threads[-1].start()
+        _wait_for(lambda: adm.stats()["waiting"] == i + 1, msg=f"arrival {i} parked")
+    time.sleep(idle_s)
+    held.done()
+    for th in threads:
+        th.join(timeout=30)
+    return order, adm
+
+
+def test_parked_arrivals_wake_only_for_their_grant():
+    """Queue C 25: a parked arrival sleeps until the pump grants it or its
+    deadline passes (the bucket here is unlimited, so no refill can grant
+    it). The reference's waiters poll every 50 ms, and under 2x overload
+    on the card (124 parked) they starved the client process's other threads: the
+    router's pressure export and the in-process head's elasticity ticks
+    (3.4-7.0 s each) ran too late for the controller to cede at the peak.
+    The grant order is the reference's, tenant for tenant."""
+    from ray_tpu.serve.admission import AdmissionController as JAdmissionController
+    from ray_tpu_torch.serve.admission import AdmissionController
+
+    order, adm = _grant_order(AdmissionController)
+    want, _ = _grant_order(JAdmissionController)
+    assert sorted(order) == list(range(40))
+    assert order == want
+    assert adm.stats()["wakeups"] == 0  # 40 parked for 1 s: none woke but to run
+    assert adm.stats()["inflight"] == 0 and adm.stats()["waiting"] == 0
+
+
+def test_admission_under_contention_never_exceeds_its_depth():
+    """Stress of the waiting room's per-waiter wakeups: 64 threads (more
+    than the cores) admit, hold and release against a depth of 4 under a
+    shortened switch interval; the in-flight count never passes 4, every
+    arrival is admitted or shed, and the room ends empty."""
+    import sys
+    import threading
+
+    from ray_tpu_torch.serve.admission import AdmissionController, Overloaded
+
+    adm = AdmissionController(max_inflight=4, wait_cap=32, wait_timeout_s=5.0)
+    lock, seen, outcomes = threading.Lock(), [0], {"admitted": 0, "shed": 0}
+
+    def arrive(i):
+        for _ in range(5):
+            try:
+                ticket = adm.admit("ab"[i % 2])
+            except Overloaded:
+                with lock:
+                    outcomes["shed"] += 1
+                continue
+            with lock:
+                outcomes["admitted"] += 1
+                seen[0] = max(seen[0], adm.stats()["inflight"])
+            time.sleep(0.001)
+            ticket.done()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=arrive, args=(i,)) for i in range(64)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert seen[0] <= 4
+    assert outcomes["admitted"] + outcomes["shed"] == 64 * 5
+    assert outcomes["admitted"] == adm.stats()["admitted"] and outcomes["admitted"] > 0
+    assert adm.stats()["inflight"] == 0 and adm.stats()["waiting"] == 0
+
+
 def test_slo_autoscaler_scales_up_then_drains():
     import ray_tpu_torch.serve as serve
     from ray_tpu_torch.serve.slo_autoscaler import SLOAutoscaler, SLOConfig

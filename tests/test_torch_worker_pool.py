@@ -271,3 +271,63 @@ def test_first_zygote_is_forked_from_the_agent_and_a_replacement_follows():
         ray_tpu_torch.kill(a)
     finally:
         pc.shutdown()
+
+
+def test_concurrent_function_loads_do_not_deadlock_on_imports(tmp_path, monkeypatch):
+    """A worker loads two task functions at once, one from a package and
+    one from its submodule, whose imports cross: the package's import
+    (held up while its spec is found, as a slow file system does) reaches
+    for the submodule while the submodule's import holds its own lock and
+    waits for the package. Loaded concurrently, as the reference's worker
+    does, one load raises ``_DeadlockError`` (a shuffle task failed so
+    under the test command's load); the worker loads one blob at a
+    time."""
+    import sys
+    import threading
+    from collections import deque
+    from types import SimpleNamespace
+
+    from ray_tpu_torch.cluster.worker import Worker
+
+    pkg = "ray_tpu_test_crossed_imports"
+    (tmp_path / pkg).mkdir()
+    (tmp_path / pkg / "__init__.py").write_text(textwrap.dedent("""
+        from . import sub
+
+        def f():
+            return "f"
+        """))
+    (tmp_path / pkg / "sub.py").write_text("def g():\n    return 'g'\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+
+    class SlowFinder:  # the package's spec takes 0.4 s to find
+        def find_spec(self, name, path=None, target=None):
+            if name == pkg:
+                time.sleep(0.4)
+            return None
+
+    monkeypatch.setattr(sys, "meta_path", [SlowFinder(), *sys.meta_path])
+    worker = SimpleNamespace(_fn_cache={}, _fn_cache_order=deque(),
+                             _fn_load_lock=threading.Lock())
+    blobs = {"f": f"c{pkg}\nf\n.".encode(), "g": f"c{pkg}.sub\ng\n.".encode()}
+    got, errors = {}, []
+
+    def load(name):
+        try:
+            got[name] = Worker._fn_from_blob(worker, name, blobs[name], True)()
+        except Exception as exc:  # noqa: BLE001 - asserted below
+            errors.append(exc)
+
+    try:
+        threads = [threading.Thread(target=load, args=("f",)),
+                   threading.Thread(target=load, args=("g",))]
+        threads[0].start()
+        time.sleep(0.1)
+        threads[1].start()
+        for th in threads:
+            th.join(timeout=30)
+        assert not any(th.is_alive() for th in threads)
+        assert errors == [] and got == {"f": "f", "g": "g"}
+    finally:
+        for name in (pkg, f"{pkg}.sub"):
+            sys.modules.pop(name, None)
